@@ -15,8 +15,17 @@ exit and no result line:
      one chunk of a 64 MiB file (depth 16), verifies it against the BLAKE3
      oracle's root, proves two chunks in lockstep (prove_many), verifies
      both, and rejects a proof with one comm_T changed;
-  5. each kernel's launch count during phase 4 (every one must be > 0).
-The last two lines are the kernels' JSON summary and the result line.
+  5. each kernel's launch count during phase 4 (every one must be > 0);
+  6. the MSM bucket designs (tools/msm_designs.py): msm_chain,
+     msm_bucket_tsplit, msm_bucket_signed and the 8-slot merge and wsum
+     against their plain versions (seeded, m = 1000, 40 and 256 bits, then
+     at the comm_T shape, exact equality, kernel and plain times), then
+     the designs path at the comm_T, W J=16 and W J=256 shapes: one line
+     per shape and design with its time and its check, and the design
+     kernels' launch counts during that run (every one must be > 0).
+The last two lines are the kernels' JSON summary (with each kernel's
+bound: the least time the card could take for the work of its timed
+call) and the result line.
 """
 
 from __future__ import annotations
@@ -33,13 +42,38 @@ import numpy as np
 import torch
 
 FILE_BYTES = 64 << 20   # 65,536 chunks: a chunk proof is 16 blocks + 16 levels
-SOURCE = "hotproofs_tpu_torch/csrc/msm.cu"
-REPLACES = {
-    "msm_bucket": "hotproofs_tpu/ops/msm_pallas.py:210",
-    "msm_merge": "hotproofs_tpu/ops/msm_pallas.py:288",
-    "msm_wsum": "hotproofs_tpu/ops/msm_pallas.py:358",
-    "to_affine": "hotproofs_tpu/ops/msm_pallas.py:66",
+CSRC = "hotproofs_tpu_torch/csrc/"
+# kernel -> (source, TPU kernel it replaces)
+KERNELS = {
+    "msm_bucket": ("msm.cu", "hotproofs_tpu/ops/msm_pallas.py:210"),
+    "msm_merge": ("msm.cu", "hotproofs_tpu/ops/msm_pallas.py:288"),
+    "msm_wsum": ("msm.cu", "hotproofs_tpu/ops/msm_pallas.py:358"),
+    "to_affine": ("msm.cu", "hotproofs_tpu/ops/msm_pallas.py:66"),
+    "msm_chain": ("msm_designs.cu", "tools/exp_bucket2.py:30"),
+    "msm_bucket_tsplit": ("msm_designs.cu", "tools/exp_tsplit.py:37"),
+    "msm_bucket_signed": ("msm_designs.cu", "tools/exp_signed_msm.py:65"),
 }
+MAIN = ("msm_bucket", "msm_merge", "msm_wsum", "to_affine")   # phase 4
+DESIGNS = ("msm_chain", "msm_bucket_tsplit", "msm_bucket_signed")  # phase 6
+
+# The bound of a kernel's call: the larger of its bytes (each input read
+# once, each output written once) over the HBM rate and its 32-bit integer
+# multiplies over the card's multiply rate. A CIOS Montgomery product on
+# 8 words takes 2 x (64 + 64) multiplies for its 32 x 32 -> 64 products
+# (low and high halves) plus 8 for the reduction factors. An RCB15 mixed
+# add needs 11 full products and a complete add 12 (csrc/curve.cuh does 2
+# more, by the constant 3b = 15, which a few modular additions can do);
+# to_affine needs 5 products a point (Montgomery's batch inversion, 3,
+# then x and y) plus one Fermat inversion for the batch. The rate is the
+# CUDA C++ Programming Guide's throughput of 32-bit integer multiply(-add)
+# for compute capability 9.0, 64 per clock per SM, at the SM's maximum
+# clock that nvidia-smi reports; the memory rate is the H100 SXM's
+# 3.35 TB/s.
+MUL32_PER_MONT = 2 * (64 + 64) + 8
+MONT_MIXED_ADD, MONT_ADD = 11, 12
+MONT_AFFINE = 5         # per point, beside one inversion per batch
+IMUL_PER_CLOCK_SM = 64
+HBM_BYTES_PER_S = 3.35e12
 
 
 def say(phase: str, msg: str) -> None:
@@ -53,7 +87,7 @@ def require(cond: bool, msg: str) -> None:
 
 
 def _oracle_root(data: bytes) -> bytes:
-    from hotproofs_tpu.core import blake3_ref
+    from hotproofs_tpu_torch.core import blake3_ref
     return blake3_ref.hash_bytes(data)
 
 
@@ -69,10 +103,145 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound(monts: int, nbytes: int, rate: float):
+    """(bound_ms, bound_by) of a call doing `monts` Montgomery products and
+    moving `nbytes`, at `rate` 32-bit multiplies per second."""
+    ops = monts * MUL32_PER_MONT / rate * 1e3
+    mem = nbytes / HBM_BYTES_PER_S * 1e3
+    return (ops, "operations") if ops >= mem else (mem, "bytes")
+
+
+def nbytes(*ts: torch.Tensor) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
 def max_err(a: torch.Tensor, b: torch.Tensor) -> int:
     require(a.shape == b.shape, f"shapes {a.shape} != {b.shape}")
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item()) \
         if a.numel() else 0
+
+
+def designs_phase(prover, data, dev, rng, note, stats, bounds,
+                  rate) -> dict:
+    """Phase 6 on prover's key (the blake3-nova key, bases prepared): the
+    design kernels and the 8-slot merge and wsum against their plain
+    versions, then the designs path at the shapes of tools/msm_designs.py
+    (the W shapes on prover's W batch of chunks of data). Records the
+    design kernels' times and bounds in stats and bounds; returns their
+    launch counts during the designs path."""
+    from hotproofs_tpu_torch.ops import curve as C
+    from hotproofs_tpu_torch.ops import msm_pallas as MP
+    from hotproofs_tpu_torch.tools import msm_designs as D
+
+    spec = C.PALLAS
+    ck = prover.ivc.ck
+
+    def design_check(inp, stats_out):
+        """Each design kernel, and the 8-slot merge and wsum, == its plain
+        version on inp. With stats_out, also time each (kernel: mean of 5
+        after a warm-up; plain: one run), record the times of msm_chain,
+        the H = 2 t-split and the signed kernel there, and return all
+        times by label."""
+        sd = MP.msm_bucket_signed(spec, inp.sdigits, inp.sbases)
+        red = MP.msm_merge(spec, sd)
+        runs = {
+            "msm_chain": (
+                lambda: MP.msm_chain(spec, inp.bases, inp.J),
+                lambda: MP.msm_chain_plain(spec, inp.bases, inp.J)),
+            **{f"msm_bucket_tsplit H={h}": (
+                lambda h=h: MP.msm_bucket_tsplit(spec, inp.digits,
+                                                 inp.bases, h),
+                lambda h=h: MP.msm_bucket_tsplit_plain(spec, inp.digits,
+                                                       inp.bases, h))
+               for h in D.TSPLITS},
+            "msm_bucket_signed": (
+                lambda: MP.msm_bucket_signed(spec, inp.sdigits, inp.sbases),
+                lambda: MP.msm_bucket_signed_plain(spec, inp.sdigits,
+                                                   inp.sbases)),
+            "msm_merge S=8": (lambda: MP.msm_merge(spec, sd),
+                              lambda: MP.msm_merge_plain(spec, sd)),
+            "msm_wsum S=8": (lambda: MP.msm_wsum(spec, red),
+                             lambda: MP.msm_wsum_plain(spec, red)),
+        }
+        times = {}
+        for label, (kern, plain) in runs.items():
+            got = kern()
+            t0 = time.perf_counter()
+            want = plain()
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            note(label.split()[0], got, want)
+            if stats_out is not None:
+                times[label] = (cuda_ms(kern, 5), plain_ms)
+        if stats_out is not None:
+            for label in ("msm_chain", "msm_bucket_tsplit H=2",
+                          "msm_bucket_signed"):
+                name = label.split()[0]
+                stats_out[name]["ms"], stats_out[name]["plain_ms"] = \
+                    times[label]
+        return times
+
+    m = 1000
+    for bits in (40, 256):
+        raw = rng.integers(0, 256, size=(3, m, 32), dtype=np.int64)
+        raw[..., (bits + 7) // 8:] = 0
+        raw[:, :, 31] &= 0x3F
+        raw[1] = 0                                  # all-zero job
+        if bits == 40:
+            raw[0, 1, 4] |= 0xF0                    # top nibble 15
+        sc = torch.from_numpy(raw.astype(np.int32)).to(dev)
+        inp = D.prepare(ck, sc, bits)
+        design_check(inp, None)
+        say("6 designs", f"seeded {bits} bits (J=3, m={m}): msm_chain, "
+            "msm_bucket_tsplit (H=2, 4), msm_bucket_signed, merge and wsum "
+            "(S=8) == plain")
+    J, m, bits = D.SHAPES["comm_T J=1"]
+    inp = D.prepare(ck, D.random_scalars(rng, J, m, bits, dev), bits)
+    times = design_check(inp, stats)
+    live = int((inp.digits != 0).sum())
+    slive = int(((inp.sdigits & 15) != 0).sum())
+    B, L = inp.digits.shape[1:]
+    SL = inp.sdigits.shape[-1]
+    pt = 3 * 8 * 4                                  # bytes of a point
+    signed_out = J * MP.NSIGNED * pt * SL
+    label_bounds = {
+        "msm_chain": bound(MONT_MIXED_ADD * J * B * L,
+                           nbytes(inp.bases) + J * pt * L, rate),
+        **{f"msm_bucket_tsplit H={h}": bound(
+            MONT_MIXED_ADD * live, nbytes(inp.digits, inp.bases)
+            + J * MP.NBUCKET * pt * h * L, rate) for h in D.TSPLITS},
+        "msm_bucket_signed": bound(MONT_MIXED_ADD * slive,
+                                   nbytes(inp.sdigits, inp.sbases)
+                                   + signed_out, rate),
+        "msm_merge S=8": bound(
+            MONT_ADD * J * MP.NSIGNED * (SL + MP.MERGE_THREADS - 1),
+            signed_out + J * MP.NSIGNED * pt, rate),
+        "msm_wsum S=8": bound(MONT_ADD * J * 2 * MP.NSIGNED,
+                              J * MP.NSIGNED * pt + J * pt, rate),
+    }
+    say("6 times", "comm_T J=1: " + ", ".join(
+        f"{k} {v[0]:.3f} ms (plain {v[1]:.1f} ms, bound "
+        f"{label_bounds[k][0]:.4f} ms by {label_bounds[k][1]})"
+        for k, v in times.items()))
+    for label in ("msm_chain", "msm_bucket_tsplit H=2", "msm_bucket_signed"):
+        bounds[label.split()[0]] = label_bounds[label]
+    del inp
+    torch.cuda.empty_cache()
+
+    MP.reset_launches()
+    res = D.run(prover, data, rng, out=lambda line: say("6 designs", line))
+    torch.cuda.synchronize()
+    design_counts = dict(MP.launches)
+    require(all(d["ok"] for tag in D.SHAPES
+                for d in res[tag]["designs"].values()),
+            "a design's MSM disagrees with msm_many (or msm_chain with its "
+            "plain version)")
+    say("6 launches", ", ".join(f"{k} {design_counts[k]}" for k in DESIGNS))
+    for k in DESIGNS:
+        require(design_counts[k] > 0, f"{k} was not launched on the "
+                "designs path")
+    say("6 host", ", ".join(f"{k} {v:.3f}" for k, v in res["host"].items()))
+    return {k: design_counts[k] for k in DESIGNS}
 
 
 def main() -> int:
@@ -84,7 +253,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
-    from hotproofs_tpu.core import native
+    from hotproofs_tpu_torch.core import native
     from hotproofs_tpu_torch.models.chunk_prover import ChunkProver
     from hotproofs_tpu_torch.nova.ivc import IVCProof
     from hotproofs_tpu_torch.nova.pedersen import CommitmentKey
@@ -92,6 +261,7 @@ def main() -> int:
     from hotproofs_tpu_torch.ops import curve as C
     from hotproofs_tpu_torch.ops import field as F
     from hotproofs_tpu_torch.ops import msm_pallas as MP
+    from hotproofs_tpu_torch.tools import msm_designs as D
     from hotproofs_tpu_torch.utils.config import CONFIG
 
     dev = torch.device("cuda")
@@ -109,20 +279,32 @@ def main() -> int:
     say("1 card", f"{smi} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | {nv[-1]} | "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--id=0", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rate = sms * IMUL_PER_CLOCK_SM * mhz * 1e6
+    say("1 card", f"bound rates: {sms} SMs x {IMUL_PER_CLOCK_SM} x "
+        f"{mhz:.0f} MHz = {rate / 1e12:.3f} T 32-bit multiplies/s; "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+    bounds = {}
 
     # -- 2. build -------------------------------------------------------------
     t0 = time.perf_counter()
     cuda_lib.lib()
+    units = cuda_lib.build_info.get("unit_seconds", {})
     say("2 build", f"kernels loaded in {time.perf_counter() - t0:.1f} s "
-        f"(nvcc {cuda_lib.build_info.get('seconds', 0.0):.1f} s) "
-        f"from {os.path.relpath(cuda_lib.build_info['path'])}")
+        f"(nvcc {cuda_lib.build_info.get('seconds', 0.0):.1f} s; units in "
+        "parallel: " + ", ".join(f"{u} {s:.1f} s" for u, s in units.items())
+        + f") from {os.path.relpath(cuda_lib.build_info['path'])}")
     for line in cuda_lib.build_info.get("ptxas", "").splitlines():
         if "registers" in line or "stack frame" in line or \
                 "Compiling entry" in line:
             say("2 build", "ptxas: " + line.strip())
 
     # -- 3. kernels vs plain versions on the card -----------------------------
-    stats = {k: {"max_abs_err": 0} for k in REPLACES}
+    stats = {k: {"max_abs_err": 0} for k in KERNELS}
     t0 = time.perf_counter()
     key = CommitmentKey.create(spec, b"blake3-nova", 16384, dev)
     say("3 kernels", f"commitment key ({key.n} generators) in "
@@ -191,6 +373,10 @@ def main() -> int:
     note("to_affine", yk, yp)
     ms = cuda_ms(lambda: MP.to_affine_words(spec, *P3), 3)
     stats["to_affine"]["ms"], stats["to_affine"]["plain_ms"] = ms, plain
+    n_pts = P3[0].shape[0]
+    inv_monts = 256 + bin(spec.base.p - 2).count("1") + 2
+    bounds["to_affine"] = bound(n_pts * MONT_AFFINE + inv_monts,
+                                nbytes(*P3, xk, yk), rate)
     say("3 times", f"to_affine on {P3[0].shape[0]} points: {ms:.3f} ms "
         f"(plain {plain:.1f} ms)")
     tmp_key._scaled[(16162, 64)] = tuple(
@@ -220,6 +406,16 @@ def main() -> int:
             times[name] = (cuda_ms(kern, 5), cuda_ms(plain, 1))
             if tag == "comm_T J=1":
                 stats[name]["ms"], stats[name]["plain_ms"] = times[name]
+        if tag == "comm_T J=1":
+            live = int((d != 0).sum())
+            S, L = bk.shape[1], bk.shape[-1]
+            bounds["msm_bucket"] = bound(MONT_MIXED_ADD * live,
+                                         nbytes(d, bases, bk), rate)
+            bounds["msm_merge"] = bound(
+                MONT_ADD * J * S * (L + MP.MERGE_THREADS - 1),
+                nbytes(bk, red), rate)
+            bounds["msm_wsum"] = bound(MONT_ADD * J * 2 * S,
+                                       nbytes(red) + J * 3 * 8 * 4, rate)
         chain = cuda_ms(lambda: MP.msm_many(spec, sc, bases, mm, bits), 5)
         say("3 times", f"{tag}: " + ", ".join(
             f"{k} {v[0]:.3f} ms (plain {v[1]:.1f} ms)"
@@ -292,15 +488,21 @@ def main() -> int:
     say("4 main", f"root {root.hex()} == BLAKE3 oracle (pure Python)")
 
     # -- 5. launches during the main path -----------------------------------
-    say("5 launches", ", ".join(f"{k} {v}" for k, v in counts.items()))
-    for k, v in counts.items():
-        require(v > 0, f"{k} was not launched on the main path")
+    say("5 launches", ", ".join(f"{k} {counts[k]}" for k in MAIN))
+    for k in MAIN:
+        require(counts[k] > 0, f"{k} was not launched on the main path")
+
+    # -- 6. the MSM bucket designs -------------------------------------------
+    counts.update(designs_phase(prover, data, dev, rng, note, stats, bounds,
+                                rate))
 
     print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES[k], "launches": counts[k],
+        {"name": k, "route": "cuda", "source": CSRC + src,
+         "replaces": rep, "launches": counts[k],
          "max_abs_err": stats[k]["max_abs_err"], "ms": stats[k]["ms"],
-         "plain_ms": stats[k]["plain_ms"]} for k in REPLACES]}))
+         "plain_ms": stats[k]["plain_ms"], "bound_ms": bounds[k][0],
+         "bound_by": bounds[k][1], "library_ms": None}
+        for k, (src, rep) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

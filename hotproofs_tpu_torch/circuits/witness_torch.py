@@ -6,8 +6,8 @@ decompositions, u32 adds with their carries, word XORs and the step's
 control flags, emitted in the DSL's allocation order signal for signal.
 u32 words are held in int64 and masked, since torch's uint32 lacks the
 shifts this needs. The three IsZero inverse hints get a placeholder 0; the
-caller patches them (nova_big_positions / nova_inverse_values, shared with
-the reference) when it expands signals to field digits.
+caller patches them (nova_big_positions / nova_inverse_values) when it
+expands signals to field digits.
 """
 
 from __future__ import annotations
@@ -18,10 +18,9 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from hotproofs_tpu.circuits.blake3_compression import (G_SCHEDULE, R1, R2,
-                                                       R3, R4, VESTA_PRIME)
-from hotproofs_tpu.circuits.blake3_nova import get_nova_step_circuit
-from hotproofs_tpu.core.blake3_ref import IV, MSG_PERMUTATION
+from ..core.blake3_ref import IV, MSG_PERMUTATION
+from .blake3_compression import G_SCHEDULE, R1, R2, R3, R4, VESTA_PRIME
+from .blake3_nova import get_nova_step_circuit
 
 MASK32 = 0xFFFFFFFF
 

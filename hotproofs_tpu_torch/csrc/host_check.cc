@@ -6,7 +6,7 @@
 // Nothing on the prover's path loads this library.
 #include <vector>
 
-#include "msm.cuh"
+#include "msm_designs.cuh"
 
 using namespace hp;
 
@@ -63,13 +63,14 @@ void hc_msm_bucket(const u32* consts, const int* digits, const u32* bases,
 }
 
 void hc_msm_merge(const u32* consts, const u32* buckets, u32* reduced, int J,
-                  int n_lanes) {
+                  int S, int n_lanes) {
   Consts c = load_consts(consts);
   std::vector<Proj> sh(MERGE_THREADS);
-  for (int js = 0; js < J * NBUCKET; ++js) {
-    int j = js / NBUCKET, s = js % NBUCKET;
+  for (int js = 0; js < J * S; ++js) {
+    int j = js / S, s = js % S;
     for (int tid = 0; tid < MERGE_THREADS; ++tid)
-      merge_thread(c, buckets, n_lanes, j, s, tid, MERGE_THREADS, sh[tid]);
+      merge_thread(c, buckets, S, n_lanes, j, s, tid, MERGE_THREADS,
+                   sh[tid]);
     for (int h = MERGE_THREADS / 2; h > 0; h >>= 1)
       for (int tid = 0; tid < h; ++tid)
         pt_add(c, sh[tid], sh[tid + h], sh[tid]);
@@ -77,9 +78,40 @@ void hc_msm_merge(const u32* consts, const u32* buckets, u32* reduced, int J,
   }
 }
 
-void hc_msm_wsum(const u32* consts, const u32* reduced, u32* out, int J) {
+void hc_msm_wsum(const u32* consts, const u32* reduced, u32* out, int J,
+                 int S) {
   Consts c = load_consts(consts);
-  for (int j = 0; j < J; ++j) wsum_job(c, reduced, out, j);
+  for (int j = 0; j < J; ++j) wsum_job(c, reduced, out, S, j);
+}
+
+void hc_msm_chain(const u32* consts, const u32* bases, u32* out, int J, int B,
+                  int n_lanes) {
+  Consts c = load_consts(consts);
+  for (int j = 0; j < J; ++j)
+    for (int l = 0; l < n_lanes; ++l)
+      chain_lane(c, bases, out, B, n_lanes, j, l);
+}
+
+// The t-split kernel's index map, thread (j, h, l) for every launch index.
+void hc_msm_bucket_tsplit(const u32* consts, const int* digits,
+                          const u32* bases, u32* buckets, int J, int B,
+                          int n_lanes, int H) {
+  Consts c = load_consts(consts);
+  const int steps = B / H;
+  for (int j = 0; j < J; ++j)
+    for (int h = 0; h < H; ++h)
+      for (int l = 0; l < n_lanes; ++l)
+        bucket_range(c, digits, bases, buckets, B, n_lanes, j, l, h * steps,
+                     (h + 1) * steps, h * n_lanes + l, H * n_lanes);
+}
+
+void hc_msm_bucket_signed(const u32* consts, const int* digits,
+                          const u32* bases, u32* buckets, int J, int B,
+                          int n_lanes) {
+  Consts c = load_consts(consts);
+  for (int j = 0; j < J; ++j)
+    for (int l = 0; l < n_lanes; ++l)
+      signed_lane(c, digits, bases, buckets, B, n_lanes, j, l);
 }
 
 void hc_to_affine(const u32* consts, const u32* X, const u32* Y, const u32* Z,

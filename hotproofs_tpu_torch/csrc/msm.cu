@@ -13,11 +13,12 @@
 //   (coalesced); the 15 buckets (1.4 KB) live in thread-local memory, which
 //   L1 caches. All J jobs read the same base array.
 // K2 msm_merge replaces _merge_kernel (msm_pallas.py:288).
-//   One 256-thread block per (job, slot): each thread adds a strided subset
-//   of lanes, then a shared-memory halving tree. Bound by the serial
-//   complete-add chain per thread (n_lanes / 256 adds, then 8 tree levels).
+//   One 256-thread block per (job, slot) of S slots (15, or 8 for the
+//   signed-digit buckets): each thread adds a strided subset of lanes, then
+//   a shared-memory halving tree. Bound by the serial complete-add chain
+//   per thread (n_lanes / 256 adds, then 8 tree levels).
 // K3 msm_wsum replaces _wsum_kernel (msm_pallas.py:358).
-//   One thread per job: 30 complete adds of the running suffix sum. Latency
+//   One thread per job: 2S complete adds of the running suffix sum. Latency
 //   bound and tiny; it exists so the chain never leaves the device.
 // K4 to_affine replaces _inv_kernel / batch_inv_mont_lm (msm_pallas.py:66,
 //   88) and _mont_mul_kernel / mont_mul_lm (pallas_field.py:267, 296) as
@@ -43,13 +44,13 @@ __global__ void k_msm_bucket(Consts c, const int* __restrict__ digits,
 
 __global__ void __launch_bounds__(MERGE_THREADS)
     k_msm_merge(Consts c, const u32* __restrict__ buckets,
-                u32* __restrict__ reduced, int n_lanes) {
+                u32* __restrict__ reduced, int S, int n_lanes) {
   __shared__ Proj sh[MERGE_THREADS];
   const int js = blockIdx.x;
-  const int j = js / NBUCKET, s = js % NBUCKET;
+  const int j = js / S, s = js % S;
   const int tid = threadIdx.x;
   Proj acc;
-  merge_thread(c, buckets, n_lanes, j, s, tid, MERGE_THREADS, acc);
+  merge_thread(c, buckets, S, n_lanes, j, s, tid, MERGE_THREADS, acc);
   sh[tid] = acc;
   __syncthreads();
   for (int h = MERGE_THREADS / 2; h > 0; h >>= 1) {
@@ -65,9 +66,9 @@ __global__ void __launch_bounds__(MERGE_THREADS)
 }
 
 __global__ void k_msm_wsum(Consts c, const u32* __restrict__ reduced,
-                           u32* __restrict__ out, int J) {
+                           u32* __restrict__ out, int S, int J) {
   int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j < J) wsum_job(c, reduced, out, j);
+  if (j < J) wsum_job(c, reduced, out, S, j);
 }
 
 __global__ void k_to_affine(Consts c, const u32* __restrict__ X,
@@ -76,10 +77,6 @@ __global__ void k_to_affine(Consts c, const u32* __restrict__ X,
                             u32* __restrict__ y, long long n) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n) affine_point(c, X, Y, Z, x, y, (size_t)i);
-}
-
-static inline unsigned blocks_for(long long n, int threads) {
-  return (unsigned)((n + threads - 1) / threads);
 }
 
 extern "C" {
@@ -95,17 +92,17 @@ int hp_msm_bucket(const u32* consts, const int* digits, const u32* bases,
 }
 
 int hp_msm_merge(const u32* consts, const u32* buckets, u32* reduced, int J,
-                 int n_lanes, void* stream) {
-  k_msm_merge<<<J * NBUCKET, MERGE_THREADS, 0, (cudaStream_t)stream>>>(
-      load_consts(consts), buckets, reduced, n_lanes);
+                 int S, int n_lanes, void* stream) {
+  k_msm_merge<<<J * S, MERGE_THREADS, 0, (cudaStream_t)stream>>>(
+      load_consts(consts), buckets, reduced, S, n_lanes);
   return (int)cudaGetLastError();
 }
 
 int hp_msm_wsum(const u32* consts, const u32* reduced, u32* out, int J,
-                void* stream) {
+                int S, void* stream) {
   const int threads = 32;
   k_msm_wsum<<<blocks_for(J, threads), threads, 0, (cudaStream_t)stream>>>(
-      load_consts(consts), reduced, out, J);
+      load_consts(consts), reduced, out, S, J);
   return (int)cudaGetLastError();
 }
 

@@ -7,9 +7,9 @@ the reference's JSON format, byte for byte.
 
 Usage (CLI):
     python -m hotproofs_tpu_torch.models.chunk_prover prove --file F \
-        --chunk 0 --out proof.json [--device cuda]
+        --chunk 0 --out proof.json [--device cuda|cpu]
     python -m hotproofs_tpu_torch.models.chunk_prover verify \
-        --proof proof.json --expect-hash HEX [--device cuda]
+        --proof proof.json --expect-hash HEX [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -24,17 +24,17 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from hotproofs_tpu.circuits import blake3_nova as nova_circ
-from hotproofs_tpu.core import blake3_ref as b3
-from hotproofs_tpu.core import native
-from hotproofs_tpu.nova import serial
-
+from ..circuits import blake3_nova as nova_circ
 from ..circuits import witness_torch as WT
+from ..core import blake3_ref as b3
+from ..core import native
+from ..nova import serial
 from ..nova.ivc import IVC, IVCProof, check
 from ..nova.pedersen import CommitmentKey
 from ..nova.r1cs import ShapeDevice
 from ..ops import curve as C
 from ..ops import field as F
+from ..utils.config import require_device
 
 IO_ARITY = nova_circ.IO_ARITY
 NOT_PORTED = "not ported yet, see ROADMAP.md"
@@ -133,19 +133,20 @@ def check_final(z_final, n_blocks, expected_hash: Optional[bytes],
 
 
 class ChunkProver:
-    """prove/verify pair for BLAKE3 chunk possession on one device."""
+    """prove/verify pair for BLAKE3 chunk possession on one device (the
+    card unless device='cpu')."""
 
     def __init__(self, curve: str = "pallas", depth_bits: int = 8,
-                 device="cpu"):
+                 device="cuda"):
         self.depth_bits = depth_bits
-        self.device = torch.device(device)
+        self.device = require_device(device)
         self.ivc, self.layout, self.modulus = _build_stack(
             curve, depth_bits, str(self.device))
 
     @staticmethod
     def _hash_with_path(data: bytes, chunk_idx: int):
-        """Native tree hasher (shared with the reference) when it builds,
-        the Python oracle otherwise."""
+        """The native tree hasher when it builds, the Python oracle
+        otherwise."""
         pd = native.hash_with_path(data, chunk_idx) \
             if native.get_lib() is not None else None
         return pd if pd is not None else b3.hash_with_path(data, chunk_idx)
@@ -229,13 +230,15 @@ def main(argv=None):
     p1.add_argument("--out", default="proof.json")
     p1.add_argument("--compress", action="store_true",
                     help=f"compressed proof (Spartan): {NOT_PORTED}")
-    p1.add_argument("--device", default="cpu")
+    p1.add_argument("--device", default="cuda",
+                    help="torch device (default: %(default)s)")
     p2 = sub.add_parser("verify")
     p2.add_argument("--proof", required=True)
     p2.add_argument("--expect-hash", default=None)
     p2.add_argument("--vk", default=None,
                     help=f"verify from an exported vk: {NOT_PORTED}")
-    p2.add_argument("--device", default="cpu")
+    p2.add_argument("--device", default="cuda",
+                    help="torch device (default: %(default)s)")
     sub.add_parser("export-vk", help=NOT_PORTED)
     args = ap.parse_args(argv)
 

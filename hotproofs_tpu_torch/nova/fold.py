@@ -3,7 +3,7 @@
 The prover keeps the running accumulator's W, E, Az, Bz and Cz on the
 device and updates them elementwise (A is linear, so Az_acc += r * Az_i);
 the host keeps the running instance and folds its commitments through the
-native EC helper shared with the reference.
+native EC helper (the port's copy of the reference's).
 
 cross_term and fold_witness take any leading batch axes: a (K, n, 32)
 accumulator folds K lockstep chains at once, with u or r as (K, 32).
@@ -16,8 +16,7 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
-from hotproofs_tpu.core import native_ff
-
+from ..core import native_ff
 from ..ops import curve as C
 from ..ops import field as F
 from .r1cs import ShapeDevice

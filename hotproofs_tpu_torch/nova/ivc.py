@@ -21,12 +21,11 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from hotproofs_tpu.nova import serial
-
 from ..ops import curve as C
 from ..ops import field as F
 from ..utils import telemetry as T_
 from . import fold as NF
+from . import serial
 from .pedersen import CommitmentKey
 from .r1cs import ShapeDevice, matvec_all, relaxed_satisfied
 from .transcript import Transcript, digest_of, transcript_poseidon_params

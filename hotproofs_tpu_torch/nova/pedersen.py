@@ -1,7 +1,7 @@
 """Pedersen vector commitments (port of hotproofs_tpu/nova/pedersen.py).
 
-Keys are the reference's deterministic generator vectors, read from and
-written to the same `.cache/gens_*.npy` files. Commit(v) = sum_i v_i G_i
+Keys are the reference's deterministic generator vectors (same derivation),
+cached as the port's own `.cache/torch_gens_*.npy`. Commit(v) = sum_i v_i G_i
 through the MSM chain of ops/msm_pallas.py over bases pre-scaled by 16^w:
 `scaled_affine` doubles the generators in plain torch on the key's device
 and converts them to affine with the to_affine kernel, once per key; the
@@ -29,17 +29,20 @@ SMALL_BITS = 40  # witness values are bits / u32 words / u34 sums
 
 
 def _load_or_derive(spec: C.CurveSpec, label: bytes, n: int) -> np.ndarray:
-    """(n, 2, 32) Montgomery affine generator digits (shared cache file)."""
+    """(n, 2, 32) Montgomery affine generator digits (cached on disk, written
+    through a per-process temporary name)."""
     os.makedirs(CONFIG.cache_dir, exist_ok=True)
     path = os.path.join(CONFIG.cache_dir,
-                        f"gens_{spec.name}_{label.decode()}_{n}.npy")
+                        f"torch_gens_{spec.name}_{label.decode()}_{n}.npy")
     if os.path.exists(path):
         return np.load(path)
     limbs = np.zeros((n, 2, F.N_LIMBS), np.int32)
     for i, (x, y) in enumerate(C.derive_generators(spec, label, n)):
         limbs[i, 0] = F.int_to_limbs(spec.base.to_mont_int(x))
         limbs[i, 1] = F.int_to_limbs(spec.base.to_mont_int(y))
-    np.save(path, limbs)
+    tmp = f"{path}.{os.getpid()}.tmp.npy"
+    np.save(tmp, limbs)
+    os.replace(tmp, path)
     return limbs
 
 
@@ -86,8 +89,10 @@ class CommitmentKey:
                                   *MP.scale_points16(self.spec, pts, w4))
             if disk:
                 os.makedirs(CONFIG.cache_dir, exist_ok=True)
-                np.save(disk, torch.stack([xa, ya]).cpu().numpy().astype(
+                tmp = f"{disk}.{os.getpid()}.tmp.npy"
+                np.save(tmp, torch.stack([xa, ya]).cpu().numpy().astype(
                     np.uint8))
+                os.replace(tmp, disk)
         self._scaled[(m, w4)] = (xa, ya)
         return xa, ya
 

@@ -19,8 +19,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from hotproofs_tpu.circuits.dsl import R1CS
-
+from ..circuits.dsl import R1CS
 from ..ops import field as F
 
 

@@ -2,8 +2,9 @@
 hotproofs_tpu/nova/transcript.py: same domain tag, absorb order and point
 encoding, so both packages derive the same challenges).
 
-Runs on the host, through the native sponge (native/ffec.cc, shared with the
-reference) when it builds, else through HostSponge.
+Runs on the host, through the native sponge (csrc/host/ffec.cc, the port's
+copy of the reference's native/ffec.cc) when it builds, else through
+HostSponge.
 """
 
 from __future__ import annotations
@@ -11,8 +12,7 @@ from __future__ import annotations
 import hashlib
 from typing import Optional, Sequence, Tuple
 
-from hotproofs_tpu.core import native_ff
-
+from ..core import native_ff
 from ..ops import poseidon as P
 
 HALF_BITS = 128

@@ -3,7 +3,8 @@ library with a plain C interface, bound with ctypes; no torch headers).
 
 The library is compiled for sm_90a on first use into `_build/`, under a file
 name that carries a hash of the sources, so an edited kernel is never
-served from a stale build. A failed build raises; nothing falls back.
+served from a stale build: one nvcc per .cu file, all started together,
+then one link. A failed build raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -15,17 +16,20 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 from ..utils.config import CONFIG
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
-SOURCES = ("field.cuh", "curve.cuh", "msm.cuh", "msm.cu")
+SOURCES = ("field.cuh", "curve.cuh", "msm.cuh", "msm.cu", "msm_designs.cuh",
+           "msm_designs.cu")
+UNITS = tuple(s for s in SOURCES if s.endswith(".cu"))
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 _lock = threading.Lock()
 _lib = None
-build_info: dict = {}   # path, seconds, ptxas log of the last build
+build_info: dict = {}   # path, seconds, ptxas log, unit_seconds of a build
 
 
 def source_hash() -> str:
@@ -45,25 +49,39 @@ def nvcc() -> str:
                        "of hotproofs_tpu_torch cannot be built")
 
 
+def _nvcc(args) -> tuple:
+    """Run nvcc with args; return its stderr (the ptxas report) and its
+    seconds. Raise if it failed."""
+    t0 = time.perf_counter()
+    r = subprocess.run([nvcc()] + args, capture_output=True, text=True)
+    if r.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({r.returncode}): {' '.join(args)}"
+                           f"\n{r.stdout}\n{r.stderr}")
+    return r.stderr, time.perf_counter() - t0
+
+
 def build() -> str:
-    """Compile csrc/msm.cu (if not built yet) and return the library path."""
+    """Compile csrc/*.cu (if not built yet) and return the library path."""
     os.makedirs(CONFIG.build_dir, exist_ok=True)
     path = os.path.join(CONFIG.build_dir, f"libhp_msm_{source_hash()}.so")
     if os.path.exists(path):
         build_info.setdefault("path", path)
         return path
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [nvcc(), ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler",
-           "-fPIC", "-Xptxas", "-v", "-o", tmp,
-           os.path.join(CSRC, "msm.cu")]
+    tmp = f"{path}.{os.getpid()}"
+    flags = [ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+    objs = [f"{tmp}.{unit}.o" for unit in UNITS]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
-    os.replace(tmp, path)
+    with ThreadPoolExecutor(len(UNITS)) as pool:
+        units = list(pool.map(_nvcc, [
+            flags + ["-Xptxas", "-v", "-c", "-o", obj, os.path.join(CSRC, u)]
+            for u, obj in zip(UNITS, objs)]))
+    _nvcc(flags + ["-shared", "-o", f"{tmp}.tmp"] + objs)
+    os.replace(f"{tmp}.tmp", path)
+    for obj in objs:
+        os.remove(obj)
     build_info.update(path=path, seconds=time.perf_counter() - t0,
-                      ptxas=res.stderr)
+                      ptxas="".join(err for err, _ in units),
+                      unit_seconds={u: s for u, (_, s) in zip(UNITS, units)})
     return path
 
 
@@ -76,9 +94,12 @@ def lib() -> ctypes.CDLL:
             P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             for name, args in {
                 "hp_msm_bucket": [P, P, P, P, I, I, I, P],
-                "hp_msm_merge": [P, P, P, I, I, P],
-                "hp_msm_wsum": [P, P, P, I, P],
+                "hp_msm_merge": [P, P, P, I, I, I, P],
+                "hp_msm_wsum": [P, P, P, I, I, P],
                 "hp_to_affine": [P, P, P, P, P, P, LL, P],
+                "hp_msm_chain": [P, P, P, I, I, I, P],
+                "hp_msm_bucket_tsplit": [P, P, P, P, I, I, I, I, P],
+                "hp_msm_bucket_signed": [P, P, P, P, I, I, I, P],
             }.items():
                 fn = getattr(handle, name)
                 fn.argtypes = args

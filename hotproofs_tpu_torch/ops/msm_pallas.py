@@ -16,16 +16,27 @@ and the bases come out of
   K4 to_affine   (replaces batch_inv_mont_lm + mont_mul_lm as composed by
                   scaled_affine_device, msm_pallas.py:156-170)
 
-The kernels are CUDA C++ in csrc/msm.cu (what bounds each and how it is
-laid out is noted there). Beside each wrapper is its plain torch version,
-the same per-lane algorithm in the same order, so the two agree bit for bit
-in projective form, and a launch count. A wrapper takes the plain version
-only for a tensor on the CPU; for a CUDA tensor it launches the kernel or
-raises.
+The bucket-design path (tools/msm_designs.py) adds three alternatives to
+K1, each followed by K2 and K3 over its own slot count S:
+
+  msm_chain          (replaces pure_chain_call, tools/exp_bucket2.py:30, and
+                      pure_call, tools/profile_msm_phases.py:139)
+  msm_bucket_tsplit  (replaces bucket_tsplit_call, tools/exp_tsplit.py:37)
+  msm_bucket_signed  (replaces bucket_signed_call,
+                      tools/exp_signed_msm.py:65)
+
+The kernels are CUDA C++ in csrc/msm.cu and csrc/msm_designs.cu (what
+bounds each and how it is laid out is noted there). Beside each wrapper is
+its plain torch version, the same per-lane algorithm in the same order, so
+the two agree bit for bit in projective form, and a launch count. A
+wrapper takes the plain version only for a tensor on the CPU; for a CUDA
+tensor it launches the kernel or raises.
 
 Kernel layouts (int32 tensors holding u32 words):
   digits  (J, B, n_lanes)         bases   (B, 2, 8, n_lanes)
-  buckets (J, 15, 3, 8, n_lanes)  reduced (J, 15, 3, 8)     sums (J, 3, 8)
+  buckets (J, S, 3, 8, n_lanes)   reduced (J, S, 3, 8)      sums (J, 3, 8)
+with S = 15 slots for K1 and the t-split (whose H sets sit on the lane
+axis, H * n_lanes lanes), 8 for the signed digits and 1 for the chain.
 """
 
 from __future__ import annotations
@@ -42,12 +53,14 @@ from .cuda_lib import check, lib
 
 RADIX_BITS = 4
 NBUCKET = 15          # digit values 1..15; digit 0 is skipped
+NSIGNED = 8           # signed-digit magnitudes 1..8 (csrc/msm_designs.cuh)
 MERGE_THREADS = 256   # lanes summed per thread stride in K2 (csrc/msm.cuh)
 NW = 8                # u32 words per field element
 
 # Launch counts: each wrapper adds one where it launches its kernel.
 launches: Dict[str, int] = {"msm_bucket": 0, "msm_merge": 0,
-                            "msm_wsum": 0, "to_affine": 0}
+                            "msm_wsum": 0, "to_affine": 0, "msm_chain": 0,
+                            "msm_bucket_tsplit": 0, "msm_bucket_signed": 0}
 
 
 def reset_launches() -> None:
@@ -89,8 +102,13 @@ def digits4(scalars: torch.Tensor, windows: int) -> torch.Tensor:
 def digits_tm(scalars: torch.Tensor, m: int, b: int, lpw: int,
               w4: int) -> torch.Tensor:
     """(J, m, 32) canonical scalars -> (J, B, n_lanes) int32 digits."""
-    J = scalars.shape[0]
-    d = digits4(scalars, w4)                               # (J, W4, m)
+    return _lanes_tm(digits4(scalars, w4), m, b, lpw, w4)
+
+
+def _lanes_tm(d: torch.Tensor, m: int, b: int, lpw: int,
+              w4: int) -> torch.Tensor:
+    """(J, W4, m) per-window digits -> the (J, B, n_lanes) kernel layout."""
+    J = d.shape[0]
     pad = lpw * b - m
     if pad:
         d = torch.nn.functional.pad(d, (0, pad))
@@ -182,28 +200,42 @@ def _proj_words(pt) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def msm_bucket_plain(spec: C.CurveSpec, digits: torch.Tensor,
-                     bases: torch.Tensor) -> torch.Tensor:
-    """Plain torch version of K1: all (job, lane) pairs step through their
-    B bases together; each gathers the bucket its digit picks, mixed-adds
-    the base, and scatters it back."""
+def _buckets_plain(spec: C.CurveSpec, digits: torch.Tensor,
+                   bases: torch.Tensor, nslots: int,
+                   signed: bool) -> torch.Tensor:
+    """All (job, lane) pairs step through their B bases together; each
+    gathers the bucket its digit's magnitude picks (1..nslots; 0 skips),
+    mixed-adds the base (y negated where a signed digit's bit 4 is set),
+    and scatters it back. -> (J, nslots, 3, 8, L)."""
     J, B, L = digits.shape
     bx = F.words_to_h16(bases[:, 0].transpose(1, 2))       # (B, L, 16)
     by = F.words_to_h16(bases[:, 1].transpose(1, 2))
-    bk = C.h_identity(spec, (J, L, NBUCKET), digits.device)
+    bk = C.h_identity(spec, (J, L, nslots), digits.device)
     for t in range(B):
-        d = digits[:, t, :].to(torch.int64)                # (J, L)
-        live = d > 0
+        e = digits[:, t, :].to(torch.int64)                # (J, L)
+        d = e & 15 if signed else e
+        live = (d > 0) & (d <= nslots)
         if not bool(live.any()):
             continue
-        idx = (d - 1).clamp(min=0)[..., None, None].expand(J, L, 1, F.N_H16)
+        idx = (d - 1).clamp(0, nslots - 1)[..., None, None].expand(
+            J, L, 1, F.N_H16)
         cur = tuple(c.gather(2, idx).squeeze(2) for c in bk)
-        new = C.h_pt_add_mixed(spec, cur, (bx[t][None], by[t][None]))
+        y = by[t][None]
+        if signed:
+            y = torch.where(((e >> 4) & 1).bool()[..., None],
+                            F.h_neg(spec.base, y), y)
+        new = C.h_pt_add_mixed(spec, cur, (bx[t][None], y))
         new = C.h_pt_select(live, new, cur)
         for c, n in zip(bk, new):
             c.scatter_(2, idx, n[:, :, None, :])
-    # (J, L, 15, 16) x3 -> (J, 15, 3, 8, L)
+    # (J, L, S, 16) x3 -> (J, S, 3, 8, L)
     return _proj_words(bk).permute(0, 2, 3, 4, 1).contiguous()
+
+
+def msm_bucket_plain(spec: C.CurveSpec, digits: torch.Tensor,
+                     bases: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of K1 (15 buckets per lane)."""
+    return _buckets_plain(spec, digits, bases, NBUCKET, signed=False)
 
 
 def msm_bucket(spec: C.CurveSpec, digits: torch.Tensor,
@@ -252,16 +284,20 @@ def msm_merge_plain(spec: C.CurveSpec, buckets: torch.Tensor) -> torch.Tensor:
 
 
 def msm_merge(spec: C.CurveSpec, buckets: torch.Tensor) -> torch.Tensor:
-    """K2: buckets (J, 15, 3, 8, n_lanes) -> reduced (J, 15, 3, 8)."""
-    J, _, _, _, L = buckets.shape
-    _check_input("msm_merge buckets", buckets, (J, NBUCKET, 3, NW, L))
+    """K2: buckets (J, S, 3, 8, n_lanes) -> reduced (J, S, 3, 8); S is read
+    from the shape (15 for msm_bucket, 8 for the signed digits)."""
+    if buckets.dim() != 5:
+        raise ValueError(f"msm_merge: want (J, S, 3, {NW}, n_lanes), got "
+                         f"{tuple(buckets.shape)}")
+    J, S, _, _, L = buckets.shape
+    _check_input("msm_merge buckets", buckets, (J, S, 3, NW, L))
     if not _on_cuda("msm_merge", buckets):
         return msm_merge_plain(spec, buckets)
-    out = torch.empty((J, NBUCKET, 3, NW), dtype=torch.int32,
+    out = torch.empty((J, S, 3, NW), dtype=torch.int32,
                       device=buckets.device)
-    if J:
+    if J * S:
         _launch("msm_merge", lib().hp_msm_merge, _consts_arg(spec),
-                _ptr(buckets), _ptr(out), J, L, device=buckets.device)
+                _ptr(buckets), _ptr(out), J, S, L, device=buckets.device)
     return out
 
 
@@ -271,27 +307,30 @@ def msm_merge(spec: C.CurveSpec, buckets: torch.Tensor) -> torch.Tensor:
 
 
 def msm_wsum_plain(spec: C.CurveSpec, reduced: torch.Tensor) -> torch.Tensor:
-    """Plain torch version of K3: running suffix sums over slots 15..1."""
-    J = reduced.shape[0]
+    """Plain torch version of K3: running suffix sums over slots S..1."""
+    J, S = reduced.shape[:2]
     pts = tuple(F.words_to_h16(reduced[:, :, c]) for c in range(3))
     t = C.h_identity(spec, (J,), reduced.device)
     s = t
-    for v in range(NBUCKET, 0, -1):
+    for v in range(S, 0, -1):
         t = C.h_pt_add(spec, t, tuple(p[:, v - 1] for p in pts))
         s = C.h_pt_add(spec, s, t)
     return _proj_words(s).contiguous()
 
 
 def msm_wsum(spec: C.CurveSpec, reduced: torch.Tensor) -> torch.Tensor:
-    """K3: reduced (J, 15, 3, 8) -> S = sum_v v * B_v as (J, 3, 8)."""
-    J = reduced.shape[0]
-    _check_input("msm_wsum reduced", reduced, (J, NBUCKET, 3, NW))
+    """K3: reduced (J, S, 3, 8) -> sum_{v=1..S} v * B_v as (J, 3, 8)."""
+    if reduced.dim() != 4:
+        raise ValueError(f"msm_wsum: want (J, S, 3, {NW}), got "
+                         f"{tuple(reduced.shape)}")
+    J, S = reduced.shape[:2]
+    _check_input("msm_wsum reduced", reduced, (J, S, 3, NW))
     if not _on_cuda("msm_wsum", reduced):
         return msm_wsum_plain(spec, reduced)
     out = torch.empty((J, 3, NW), dtype=torch.int32, device=reduced.device)
     if J:
         _launch("msm_wsum", lib().hp_msm_wsum, _consts_arg(spec),
-                _ptr(reduced), _ptr(out), J, device=reduced.device)
+                _ptr(reduced), _ptr(out), J, S, device=reduced.device)
     return out
 
 
@@ -385,3 +424,132 @@ def scaled_affine_host(spec: C.CurveSpec, gens: list, w4: int):
             for _ in range(RADIX_BITS):
                 pt = C.host_add(spec, pt, pt)
     return xa, ya
+
+
+# ---------------------------------------------------------------------------
+# Bucket designs (tools/msm_designs.py): alternatives to K1, each followed
+# by K2 and K3 over its own slot count. Kernels in csrc/msm_designs.cu.
+# ---------------------------------------------------------------------------
+
+
+def msm_chain_plain(spec: C.CurveSpec, bases: torch.Tensor,
+                    J: int) -> torch.Tensor:
+    """Plain torch version of msm_chain: every lane mixed-adds its B bases
+    in order into one accumulator. No digit is read, so the J jobs hold
+    the same lane sums: computed once and repeated."""
+    B, _, _, L = bases.shape
+    bx = F.words_to_h16(bases[:, 0].transpose(1, 2))       # (B, L, 16)
+    by = F.words_to_h16(bases[:, 1].transpose(1, 2))
+    acc = C.h_identity(spec, (L,), bases.device)
+    for t in range(B):
+        acc = C.h_pt_add_mixed(spec, acc, (bx[t], by[t]))
+    out = _proj_words(acc).permute(1, 2, 0)                # (3, 8, L)
+    return out[None].expand(J, 3, NW, L).contiguous()
+
+
+def msm_chain(spec: C.CurveSpec, bases: torch.Tensor, J: int) -> torch.Tensor:
+    """The bucket kernel's add chain without buckets: (B, 2, 8, n_lanes)
+    bases -> (J, 3, 8, n_lanes), lane l of every job = the sum of its B
+    bases (padding points included). Wrong as an MSM by design: a ceiling
+    for msm_bucket at the same thread count."""
+    B, _, _, L = bases.shape
+    _check_input("msm_chain bases", bases, (B, 2, NW, L))
+    if not _on_cuda("msm_chain", bases):
+        return msm_chain_plain(spec, bases, J)
+    out = torch.empty((J, 3, NW, L), dtype=torch.int32, device=bases.device)
+    if J * L:
+        _launch("msm_chain", lib().hp_msm_chain, _consts_arg(spec),
+                _ptr(bases), _ptr(out), J, B, L, device=bases.device)
+    return out
+
+
+def tsplit_layout(digits: torch.Tensor, bases: torch.Tensor, H: int):
+    """The t-split as a lane layout: lane h * n_lanes + l of the result
+    holds steps [h B/H, (h+1) B/H) of lane l. -> digits (J, B/H, H n_lanes)
+    and bases (B/H, 2, 8, H n_lanes)."""
+    J, B, L = digits.shape
+    d = digits.reshape(J, H, B // H, L).permute(0, 2, 1, 3)
+    b = bases.reshape(H, B // H, 2, NW, L).permute(1, 2, 3, 0, 4)
+    return (d.reshape(J, B // H, H * L).contiguous(),
+            b.reshape(B // H, 2, NW, H * L).contiguous())
+
+
+def msm_bucket_tsplit_plain(spec: C.CurveSpec, digits: torch.Tensor,
+                            bases: torch.Tensor, H: int) -> torch.Tensor:
+    """Plain torch version of msm_bucket_tsplit: K1's plain version over
+    the t-split lane layout (each set sees its steps in the kernel's
+    order)."""
+    return msm_bucket_plain(spec, *tsplit_layout(digits, bases, H))
+
+
+def msm_bucket_tsplit(spec: C.CurveSpec, digits: torch.Tensor,
+                      bases: torch.Tensor, H: int) -> torch.Tensor:
+    """K1 with H bucket sets per lane over disjoint step ranges: (J, B,
+    n_lanes) digits x (B, 2, 8, n_lanes) bases -> (J, 15, 3, 8, H n_lanes),
+    set h of lane l at lane h * n_lanes + l (K2 sums it like any lane)."""
+    J, B, L = digits.shape
+    _check_input("msm_bucket_tsplit digits", digits, (J, B, L))
+    _check_input("msm_bucket_tsplit bases", bases, (B, 2, NW, L))
+    if H < 1 or B % H:
+        raise ValueError(f"msm_bucket_tsplit: H = {H} must divide B = {B}")
+    if not _on_cuda("msm_bucket_tsplit", digits, bases):
+        return msm_bucket_tsplit_plain(spec, digits, bases, H)
+    out = torch.empty((J, NBUCKET, 3, NW, H * L), dtype=torch.int32,
+                      device=digits.device)
+    if J * L:
+        _launch("msm_bucket_tsplit", lib().hp_msm_bucket_tsplit,
+                _consts_arg(spec), _ptr(digits), _ptr(bases), _ptr(out), J,
+                B, L, H, device=digits.device)
+    return out
+
+
+def signed_bits(max_bits: int) -> int:
+    """Bit width whose windows hold a signed recode of scalars < 2^max_bits
+    (canonical, so < 2^255): the top window's digit must be <= 7 before
+    the carry, so a width that fills its top window gets one more window
+    (40 -> 44); 256-bit scalars already leave room."""
+    return min(RADIX_BITS * n_windows4(max_bits + 1), 256)
+
+
+def signed_digits_tm(scalars: torch.Tensor, m: int, b: int, lpw: int,
+                     w4: int) -> torch.Tensor:
+    """(J, m, 32) canonical scalars -> (J, B, n_lanes) signed radix-16
+    digits mag | (neg << 4), mag in 0..8, sum_w 16^w (-1)^neg mag equal to
+    the scalar: the carry scan of the TPU experiment's signed_recode
+    (tools/exp_signed_msm.py:39), in digits_tm's layout. w4 windows must
+    absorb the last carry (see signed_bits)."""
+    d = digits4(scalars, w4).to(torch.int64)               # (J, W4, m)
+    carry = torch.zeros_like(d[:, 0])
+    enc = []
+    for w in range(w4):
+        dp = d[:, w] + carry
+        carry = (dp >= 9).to(torch.int64)
+        enc.append(torch.where(carry.bool(), 16 - dp, dp) | (carry << 4))
+    if bool(carry.any()):
+        raise ValueError(f"signed_digits_tm: {w4} windows leave a carry; "
+                         "use plan(m, signed_bits(max_bits))")
+    return _lanes_tm(torch.stack(enc, dim=1), m, b, lpw, w4)
+
+
+def msm_bucket_signed_plain(spec: C.CurveSpec, digits: torch.Tensor,
+                            bases: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of msm_bucket_signed (8 buckets per lane)."""
+    return _buckets_plain(spec, digits, bases, NSIGNED, signed=True)
+
+
+def msm_bucket_signed(spec: C.CurveSpec, digits: torch.Tensor,
+                      bases: torch.Tensor) -> torch.Tensor:
+    """K1 on signed digits: (J, B, n_lanes) signed_digits_tm x (B, 2, 8,
+    n_lanes) bases -> (J, 8, 3, 8, n_lanes) buckets for magnitudes 1..8."""
+    J, B, L = digits.shape
+    _check_input("msm_bucket_signed digits", digits, (J, B, L))
+    _check_input("msm_bucket_signed bases", bases, (B, 2, NW, L))
+    if not _on_cuda("msm_bucket_signed", digits, bases):
+        return msm_bucket_signed_plain(spec, digits, bases)
+    out = torch.empty((J, NSIGNED, 3, NW, L), dtype=torch.int32,
+                      device=digits.device)
+    if J * L:
+        _launch("msm_bucket_signed", lib().hp_msm_bucket_signed,
+                _consts_arg(spec), _ptr(digits), _ptr(bases), _ptr(out), J,
+                B, L, device=digits.device)
+    return out

@@ -1,8 +1,8 @@
 """Runtime configuration of the PyTorch port: on-disk locations and the
 transcript's Poseidon parameterisation.
 
-The device is never chosen here: every entry point takes an explicit
-`device` argument.
+The device is never chosen here: every entry point takes a `device`
+argument, "cuda" unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -10,14 +10,16 @@ from __future__ import annotations
 import os
 from dataclasses import dataclass
 
+import torch
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _REPO_ROOT = os.path.dirname(_PKG_DIR)
 
 
 @dataclass
 class Config:
-    # Generator files are shared with the JAX package (same derivation, same
-    # `gens_*.npy` names); the port's own base layouts use `torch_*` names.
+    # The port's cache files (generators, base layouts, native libraries)
+    # carry `torch_*` names, so it never writes a file of the JAX package's.
     cache_dir: str = os.environ.get(
         "HOTPROOFS_CACHE", os.path.join(_REPO_ROOT, ".cache"))
     # Where nvcc writes the kernels' shared library (csrc/ -> _build/).
@@ -28,3 +30,13 @@ class Config:
 
 
 CONFIG = Config()
+
+
+def require_device(device) -> torch.device:
+    """The torch device an entry point runs on. A CUDA device must exist:
+    the port never falls back to the CPU unless the caller asks for it."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev}: no CUDA device is available; "
+                           "pass device='cpu' to run on the CPU")
+    return dev

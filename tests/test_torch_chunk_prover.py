@@ -9,6 +9,7 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -100,6 +101,36 @@ def test_cli_unported_options_exit_nonzero(argv):
     assert "not ported yet" in str(e.value.code)
 
 
+def test_designs_tool_times_the_w_batch_prove_many_commits(monkeypatch):
+    """tools/msm_designs.py's W shapes take the batch prove_many commits
+    at 40 bits (full-width positions zeroed), whose digits are mostly
+    zero, unlike uniform random scalars'."""
+    from hotproofs_tpu_torch.tools import msm_designs as D
+
+    class Committed(Exception):
+        pass
+
+    def commit_many_split(w, big_idx):
+        seen.append(w.clone())
+        raise Committed
+
+    seen = []
+    prover = CP.ChunkProver(device="cpu")
+    monkeypatch.setattr(prover.ivc, "prepare_key", lambda: None)
+    monkeypatch.setattr(prover.ivc.ck, "commit_many_split", commit_many_split)
+    data = bytes(range(256)) * 8 + bytes(range(100))    # 2 chunks + 100 B
+    with pytest.raises(Committed):
+        prover.prove_many(data, [1, 0])
+    w = D.witness_scalars(prover, data, [1, 0])
+    assert w.shape == (2 * D.STEPS, prover.ivc.shape.n_wit, 32)
+    want = seen[0].clone()
+    want[:, torch.as_tensor(prover.ivc.big_wit_idx)] = 0
+    assert torch.equal(w, want)
+    assert not bool((w[..., 5:] != 0).any())            # all < 2^40
+    rand = D.random_scalars(np.random.default_rng(0), 2, 1000, 40, "cpu")
+    assert D.nonzero_share(w, 40) < 0.5 < D.nonzero_share(rand, 40)
+
+
 @pytest.mark.slow  # full-width key preparation on the CPU + reference prove
 def test_two_block_chunk_byte_equal_and_cross_verified(tmp_path):
     from hotproofs_tpu.models import chunk_prover as RCP
@@ -108,7 +139,8 @@ def test_two_block_chunk_byte_equal_and_cross_verified(tmp_path):
     f = tmp_path / "data.bin"
     f.write_bytes(data)
     out = tmp_path / "port.json"
-    CP.main(["prove", "--file", str(f), "--chunk", "1", "--out", str(out)])
+    CP.main(["prove", "--file", str(f), "--chunk", "1", "--out", str(out),
+             "--device", "cpu"])
     ref_prover = RCP.ChunkProver()
     root, ref_proof = ref_prover.prove(data, 1)
     ref_out = tmp_path / "ref.json"
@@ -117,5 +149,5 @@ def test_two_block_chunk_byte_equal_and_cross_verified(tmp_path):
     port_proof = RCP.ChunkProof.load(str(out))
     assert ref_prover.verify(port_proof, root) == root
     CP.main(["verify", "--proof", str(ref_out), "--expect-hash",
-             root.hex()])
+             root.hex(), "--device", "cpu"])
     assert json.loads(out.read_text())["chunk_idx"] == 1

@@ -1,6 +1,6 @@
 """The CUDA kernels' arithmetic and per-thread bodies, built for the host.
 
-csrc/field.cuh, csrc/curve.cuh and csrc/msm.cuh compile with g++ when
+csrc/field.cuh, curve.cuh, msm.cuh and msm_designs.cuh compile with g++ when
 __CUDACC__ is undefined; csrc/host_check.cc wraps them in a ctypes library
 (built here into a temporary directory, as core/native_ff.py builds
 ffec.so). This checks the CIOS multiply and the RCB15 point formulas
@@ -138,13 +138,75 @@ def test_msm_kernel_bodies_vs_plain(hc, m, bits):
 
     red = MP.msm_merge_plain(spec, bk)
     red_h = np.zeros(tuple(red.shape), np.uint32)
-    hc.hc_msm_merge(_p(cw), _p(bk_h), _p(red_h), 2, n_lanes)
+    hc.hc_msm_merge(_p(cw), _p(bk_h), _p(red_h), 2, MP.NBUCKET, n_lanes)
     assert np.array_equal(red_h.view(np.int32), red.numpy())
 
     s = MP.msm_wsum_plain(spec, red)
     s_h = np.zeros(tuple(s.shape), np.uint32)
-    hc.hc_msm_wsum(_p(cw), _p(red_h), _p(s_h), 2)
+    hc.hc_msm_wsum(_p(cw), _p(red_h), _p(s_h), 2, MP.NBUCKET)
     assert np.array_equal(s_h.view(np.int32), s.numpy())
+
+
+def _host(hc, name, shape, *args):
+    """Run host_check's `name` into a fresh uint32 output of `shape`;
+    return it as int32 (the wrappers' dtype)."""
+    out = np.zeros(tuple(shape), np.uint32)
+    getattr(hc, name)(*args[:-1], _p(out), *args[-1])
+    return out.view(np.int32)
+
+
+@pytest.mark.parametrize("m,bits", [(20, 256), (300, 40)])
+def test_design_kernel_bodies_vs_plain(hc, m, bits):
+    """msm_chain, msm_bucket_tsplit (H = 2, 4), msm_bucket_signed and the
+    S = 8 merge and wsum: per-thread code == plain versions, bit for bit."""
+    spec = C.PALLAS
+    f = spec.base
+    rng = np.random.default_rng(m + bits)
+    sbits = MP.signed_bits(bits)
+    b, lpw, w4, n_lanes = MP.plan(m, sbits)
+    xa, ya = (torch.from_numpy(f.batch_to_limbs(
+        [int.from_bytes(rng.bytes(32), "little") % f.p
+         for _ in range(w4 * m)]).reshape(w4, m, 32)) for _ in range(2))
+    bases = MP.bases_tm(xa, ya, m, sbits)
+    bn = np.ascontiguousarray(bases.numpy().view(np.uint32))
+    raw = rng.integers(0, 256, size=(2, m, 32), dtype=np.int64)
+    raw[..., (bits + 7) // 8:] = 0
+    raw[:, :, 31] &= 0x3F
+    if bits % 8 == 0 and bits < 256:
+        raw[0, 1, bits // 8 - 1] |= 0xF0          # top nibble 15
+    raw[1] = 0
+    sc = torch.from_numpy(raw.astype(np.int32))
+    cw = MP.consts_words(spec)
+
+    ch = MP.msm_chain_plain(spec, bases, 2)
+    assert np.array_equal(_host(hc, "hc_msm_chain", ch.shape, _p(cw),
+                                _p(bn), (2, b, n_lanes)), ch.numpy())
+
+    d = MP.digits_tm(sc, m, b, lpw, w4)
+    dn = np.ascontiguousarray(d.numpy())
+    for H in (2, 4):
+        ts = MP.msm_bucket_tsplit_plain(spec, d, bases, H)
+        assert ts.shape == (2, MP.NBUCKET, 3, 8, H * n_lanes)
+        assert np.array_equal(_host(
+            hc, "hc_msm_bucket_tsplit", ts.shape, _p(cw), _p(dn), _p(bn),
+            (2, b, n_lanes, H)), ts.numpy()), H
+
+    sd = MP.signed_digits_tm(sc, m, b, lpw, w4)
+    sn = np.ascontiguousarray(sd.numpy())
+    sg = MP.msm_bucket_signed_plain(spec, sd, bases)
+    sg_h = _host(hc, "hc_msm_bucket_signed", sg.shape, _p(cw), _p(sn),
+                 _p(bn), (2, b, n_lanes))
+    assert np.array_equal(sg_h, sg.numpy())
+
+    red = MP.msm_merge_plain(spec, sg)
+    assert red.shape == (2, MP.NSIGNED, 3, 8)
+    red_h = _host(hc, "hc_msm_merge", red.shape, _p(cw),
+                  _p(np.ascontiguousarray(sg_h)), (2, MP.NSIGNED, n_lanes))
+    assert np.array_equal(red_h, red.numpy())
+    s = MP.msm_wsum_plain(spec, red)
+    s_h = _host(hc, "hc_msm_wsum", s.shape, _p(cw),
+                _p(np.ascontiguousarray(red_h)), (2, MP.NSIGNED))
+    assert np.array_equal(s_h, s.numpy())
 
 
 def test_to_affine_body_vs_plain_and_host(hc):

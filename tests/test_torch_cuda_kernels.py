@@ -1,9 +1,10 @@
-"""The four CUDA kernels against their plain torch versions, on the card.
+"""The CUDA kernels against their plain torch versions, on the card.
 
 Marked `cuda`: without a CUDA device each test skips (the decision is made
-inside the fixture, never at import). On a machine with the card:
+inside the fixture, never at import). On a machine with the card (which
+has no jax, so the JAX package's tests/conftest.py is not loaded):
 
-    python -m pytest tests/test_torch_cuda_kernels.py -q -m cuda
+    python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q -m cuda
 """
 
 import numpy as np
@@ -76,6 +77,45 @@ def test_msm_chain_kernels_vs_plain_and_host(dev, key, bits):
     want = [C.host_msm(SPEC, [F.limbs_to_int(r) for r in raw[j]], gens)
             for j in range(3)]
     assert got == want and got[1] is None
+
+
+@pytest.mark.parametrize("bits", [40, 256])
+def test_design_kernels_vs_plain_and_host(dev, key, bits):
+    """msm_chain, msm_bucket_tsplit (H = 2, 4), msm_bucket_signed and the
+    S = 8 merge and wsum: kernel == plain; each MSM == host_msm."""
+    ck, gens = key
+    m = len(gens)
+    rng = np.random.default_rng(bits + 1)
+    raw = rng.integers(0, 256, size=(3, m, 32), dtype=np.int64)
+    raw[..., (bits + 7) // 8:] = 0
+    raw[:, :, 31] &= 0x3F
+    raw[0, 1, (bits - 1) // 8] |= 0xF0 if bits == 40 else 0
+    raw[1] = 0
+    sc = torch.from_numpy(raw.astype(np.int32)).to(dev)
+    want = [C.host_msm(SPEC, [F.limbs_to_int(r) for r in raw[j]], gens)
+            for j in range(3)]
+    sums = lambda bk: ck.affine(tuple(
+        F.words_to_digits(MP.msm_wsum(SPEC, MP.msm_merge(SPEC, bk)))
+        .unbind(1)))
+    b, lpw, w4, _ = MP.plan(m, bits)
+    d = MP.digits_tm(sc, m, b, lpw, w4)
+    bases = ck.bases(m, bits)
+    ch = MP.msm_chain(SPEC, bases, 3)
+    assert torch.equal(ch, MP.msm_chain_plain(SPEC, bases, 3))
+    for H in (2, 4):
+        bk = MP.msm_bucket_tsplit(SPEC, d, bases, H)
+        assert torch.equal(bk, MP.msm_bucket_tsplit_plain(SPEC, d, bases, H))
+        assert sums(bk) == want
+    sbits = MP.signed_bits(bits)
+    b, lpw, w4, _ = MP.plan(m, sbits)
+    sd = MP.signed_digits_tm(sc, m, b, lpw, w4)
+    sbases = ck.bases(m, sbits)
+    bk = MP.msm_bucket_signed(SPEC, sd, sbases)
+    assert torch.equal(bk, MP.msm_bucket_signed_plain(SPEC, sd, sbases))
+    red = MP.msm_merge(SPEC, bk)
+    assert torch.equal(red, MP.msm_merge_plain(SPEC, bk))
+    assert torch.equal(MP.msm_wsum(SPEC, red), MP.msm_wsum_plain(SPEC, red))
+    assert sums(bk) == want
 
 
 def test_wrappers_reject_bad_inputs(dev):
