@@ -22,7 +22,16 @@ exit and no result line:
      at the comm_T shape, exact equality, kernel and plain times), then
      the designs path at the comm_T, W J=16 and W J=256 shapes: one line
      per shape and design with its time and its check, and the design
-     kernels' launch counts during that run (every one must be > 0).
+     kernels' launch counts during that run (every one must be > 0);
+  7. the field-multiply path (tools/field_mul.py): mont_mul in its three
+     formats and with broadcast operands, mont_mul_stage (stages 1..5),
+     mont_mul_part (conv, conv3, norm) and conv_mma against their plain
+     versions in three fields, on seeded inputs with the edge lanes 0 * 0,
+     (p-1)^2 and 1 * (p-1), at a size that is no multiple of 512 (exact
+     equality); mont_mul at the prover's own to_mont and from_mont shapes;
+     then the tool's run at N = 16,384 and 131,072, one line per kernel,
+     stage and part with its time, its plain version's and its bound, and
+     the launch counts of that run (every one must be > 0).
 The last two lines are the kernels' JSON summary (with each kernel's
 bound: the least time the card could take for the work of its timed
 call) and the result line.
@@ -52,9 +61,15 @@ KERNELS = {
     "msm_chain": ("msm_designs.cu", "tools/exp_bucket2.py:30"),
     "msm_bucket_tsplit": ("msm_designs.cu", "tools/exp_tsplit.py:37"),
     "msm_bucket_signed": ("msm_designs.cu", "tools/exp_signed_msm.py:65"),
+    "mont_mul": ("mont.cu", "hotproofs_tpu/ops/pallas_field.py:267"),
+    "mont_mul_stage": ("mont.cu", "tools/bench_pallas_bisect.py:45"),
+    "mont_mul_part": ("mont.cu", "tools/bench_pallas_parts.py:46"),
+    "conv_mma": ("conv_mma.cu", "tools/bench_pallas_parts.py:74"),
 }
-MAIN = ("msm_bucket", "msm_merge", "msm_wsum", "to_affine")   # phase 4
+MAIN = ("msm_bucket", "msm_merge", "msm_wsum", "to_affine",
+        "mont_mul")                                            # phase 4
 DESIGNS = ("msm_chain", "msm_bucket_tsplit", "msm_bucket_signed")  # phase 6
+FIELD = ("mont_mul", "mont_mul_stage", "mont_mul_part", "conv_mma")  # phase 7
 
 # The bound of a kernel's call: the larger of its bytes (each input read
 # once, each output written once) over the HBM rate and its 32-bit integer
@@ -242,6 +257,104 @@ def designs_phase(prover, data, dev, rng, note, stats, bounds,
                 "designs path")
     say("6 host", ", ".join(f"{k} {v:.3f}" for k, v in res["host"].items()))
     return {k: design_counts[k] for k in DESIGNS}
+
+
+def field_phase(prover, dev, rng, note, stats, bounds) -> dict:
+    """Phase 7: the four field-multiply kernels against their plain
+    versions in three fields, mont_mul at the prover's own shapes, then
+    the run of tools/field_mul.py over prover's key. Records the kernels'
+    times and bounds in stats and bounds (mont_mul: the prover's to_mont
+    of one 16-step witness chunk; the others: the tool's N = 131,072 lines
+    of stage 5, the conv part and conv_mma); returns their launch counts
+    during the tool's run."""
+    from hotproofs_tpu_torch.ops import field as F
+    from hotproofs_tpu_torch.ops import msm_pallas as MP
+    from hotproofs_tpu_torch.ops import pallas_field as PF
+    from hotproofs_tpu_torch.tools import field_mul as FM
+
+    n = 1037                                  # no multiple of 512, 128 or 8
+    for spec in (F.pallas_base, F.vesta_base, F.bn254_base):
+        a, b = (FM.random_elements(rng, spec, n, dev) for _ in range(2))
+        edge = torch.from_numpy(spec.batch_to_limbs(
+            [0, spec.p - 1, 1, 0, spec.p - 1, spec.p - 1])).to(dev)
+        a[:3], b[:3] = edge[:3], edge[3:]
+        at, bt = a.T.contiguous(), b.T.contiguous()
+        aw, bw = F.digits_to_words(a), F.digits_to_words(b)
+        a3 = a[:1020].reshape(4, 255, 32)
+        want = PF.mont_mul_em_plain(spec, a, b)
+        note("mont_mul", PF.mont_mul_em(spec, a, b), want)
+        note("mont_mul", PF.mont_mul_lm(spec, at, bt), want.T)
+        note("mont_mul", PF.mont_mul_words(spec, aw, bw),
+             PF.mont_mul_words_plain(spec, aw, bw))
+        for x, y in ((a3, b[7]), (a3, b[:255]), (a3[:, ::2], b[:128]),
+                     (a3, b[:4].reshape(4, 1, 32))):
+            note("mont_mul", PF.mont_mul_em(spec, x, y),
+                 PF.mont_mul_em_plain(spec, x, y))
+        note("mont_mul", F.from_mont(spec, F.to_mont(spec, a)), a)
+        for stage in PF.STAGES:
+            note("mont_mul_stage", PF.mont_mul_stage(spec, at, bt, stage),
+                 PF.mont_mul_stage_plain(spec, at, bt, stage))
+        note("mont_mul_stage", PF.mont_mul_stage(spec, at, bt, 5), want.T)
+        for part in PF.PARTS:
+            note("mont_mul_part", PF.mont_mul_part(spec, at, bt, part),
+                 PF.mont_mul_part_plain(spec, at, bt, part))
+        got = PF.conv_mma(at, bt)
+        note("conv_mma", got, PF.conv_mma_plain(at, bt))
+        note("conv_mma", got & 0xFF, PF.mont_mul_part(spec, at, bt, "conv"))
+        torch.cuda.synchronize()
+        say("7 kernels", f"{spec.name} (n={n}, edge lanes): mont_mul (em, "
+            "lm, words, broadcasts), stages 1-5, parts conv/conv3/norm, "
+            "conv_mma == plain")
+
+    # mont_mul at the prover's shapes, in the circuit's field: the to_mont
+    # of one 16-step witness chunk and the from_mont of a cross term.
+    shape = prover.ivc.shape
+    spec = shape.field
+    rate = FM.imul_rate(dev)
+    for tag, dims, op, const in (
+            ("to_mont", (16, shape.n_vars), F.to_mont, "r2"),
+            ("from_mont", (1, shape.n_cons), F.from_mont, "unit")):
+        x = FM.random_elements(rng, spec, dims[0] * dims[1], dev).reshape(
+            *dims, 32)
+        c = PF.const_digits(spec, const, dev)
+        got = op(spec, x)
+        t0 = time.perf_counter()
+        want = PF.mont_mul_em_plain(spec, x, c)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        note("mont_mul", got, want)
+        ms = FM.kernel_ms(dev, lambda i: op(spec, x), 20)
+        # the constant is one element: 128 bytes in all, read once
+        bnd = FM.bound(1, FM.MULS["mont_mul"] * x[..., 0].numel(),
+                       nbytes(x, got, c), rate)
+        say("7 times", f"{tag} of {dims[0]} x {dims[1]} elements "
+            f"({spec.name}): mont_mul {ms:.4f} ms (plain {plain_ms:.3f} ms, "
+            f"bound {bnd[0]:.4f} ms by {bnd[1]})")
+        if tag == "to_mont":
+            stats["mont_mul"]["ms"], stats["mont_mul"]["plain_ms"] = \
+                ms, plain_ms
+            bounds["mont_mul"] = bnd
+    del x, got, want
+    torch.cuda.empty_cache()
+
+    MP.reset_launches()
+    res = FM.run(dev, rng, ck=prover.ivc.ck,
+                 out=lambda line: say("7 field_mul", line))
+    torch.cuda.synchronize()
+    counts = {k: MP.launches[k] for k in FIELD}
+    require(FM.all_ok(res), "a field-multiply kernel, stage or part "
+            "disagrees with its plain version, or an MSM with the host")
+    rows = res[f"N={FM.NS[-1]}"]
+    for k, line in (("mont_mul_stage", "stage 5"), ("mont_mul_part", "conv"),
+                    ("conv_mma", "conv_mma")):
+        stats[k]["ms"] = rows[line]["ms"]
+        stats[k]["plain_ms"] = rows[line]["plain_ms"]
+        bounds[k] = (rows[line]["bound_ms"], rows[line]["bound_by"])
+    say("7 launches", ", ".join(f"{k} {counts[k]}" for k in FIELD))
+    for k in FIELD:
+        require(counts[k] > 0, f"{k} was not launched on the field-multiply "
+                "path")
+    return counts
 
 
 def main() -> int:
@@ -495,6 +608,11 @@ def main() -> int:
     # -- 6. the MSM bucket designs -------------------------------------------
     counts.update(designs_phase(prover, data, dev, rng, note, stats, bounds,
                                 rate))
+
+    # -- 7. the field-multiply path ------------------------------------------
+    # mont_mul's count in the kernels line stays the main path's (phase 5).
+    field_counts = field_phase(prover, dev, rng, note, stats, bounds)
+    counts.update({k: field_counts[k] for k in FIELD if k not in MAIN})
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": CSRC + src,

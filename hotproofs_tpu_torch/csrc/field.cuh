@@ -47,6 +47,27 @@ HP_HD Consts load_consts(const u32* w) {
   return c;
 }
 
+// Constants of one prime field alone, for the field-multiply kernels
+// (mont.cuh), which run in any FieldSpec's field and need no curve: p,
+// mu = -p^-1 mod 2^256 (the staged reduction's factor) and n0inv, packed
+// by hotproofs_tpu_torch/ops/pallas_field.py: field_consts_words.
+struct FieldConsts {
+  u32 p[NW];
+  u32 mu[NW];
+  u32 n0inv;     // -p^-1 mod 2^32 (the low word of mu)
+};
+constexpr int FIELD_CONSTS_WORDS = 2 * NW + 1;
+
+HP_HD FieldConsts load_field_consts(const u32* w) {
+  FieldConsts f;
+  for (int i = 0; i < NW; ++i) {
+    f.p[i] = w[i];
+    f.mu[i] = w[NW + i];
+  }
+  f.n0inv = w[2 * NW];
+  return f;
+}
+
 HP_HD void fe_copy(u32* out, const u32* a) {
 #pragma unroll
   for (int i = 0; i < NW; ++i) out[i] = a[i];
@@ -82,7 +103,9 @@ HP_HD void sub_p(u32* t, const u32* p) {
 }
 
 // out = a * b * 2^-256 mod p. Inputs canonical (< p); out may alias a or b.
-HP_HD void mont_mul(const Consts& c, const u32* a, const u32* b, u32* out) {
+// K is Consts or FieldConsts: only p and n0inv are read.
+template <class K>
+HP_HD void mont_mul(const K& c, const u32* a, const u32* b, u32* out) {
   u32 t[NW + 2];
 #pragma unroll
   for (int j = 0; j < NW + 2; ++j) t[j] = 0;

@@ -6,6 +6,7 @@
 // Nothing on the prover's path loads this library.
 #include <vector>
 
+#include "mont.cuh"
 #include "msm_designs.cuh"
 
 using namespace hp;
@@ -118,6 +119,60 @@ void hc_to_affine(const u32* consts, const u32* X, const u32* Y, const u32* Z,
                   u32* x, u32* y, long long n) {
   Consts c = load_consts(consts);
   for (long long i = 0; i < n; ++i) affine_point(c, X, Y, Z, x, y, (size_t)i);
+}
+
+// The field-multiply kernels' bodies (mont.cuh), one call per launch index.
+// a, b and out are int32 in `layout` (1 limb-major digits, 2 words; the
+// element-major kernel is hc_mont_mul_em_tiled); a and b hold na and nb
+// elements (broadcast if < n).
+void hc_mont_mul_fmt(const u32* fconsts, const int* a, long long na,
+                     const int* b, long long nb, int* out, long long n,
+                     int layout) {
+  FieldConsts f = load_field_consts(fconsts);
+  for (long long i = 0; i < n; ++i)
+    mont_mul_elem(f, a, (size_t)na, b, (size_t)nb, out, (size_t)n, (size_t)i,
+                  layout);
+}
+
+// k_mont_mul_em replayed block by block: every thread's share of staging
+// the tile in, then every thread's product, then the staging out, in the
+// kernel's order between its barriers.
+void hc_mont_mul_em_tiled(const u32* fconsts, const int* a, long long na,
+                          const int* b, long long nb, int* out,
+                          long long n) {
+  FieldConsts f = load_field_consts(fconsts);
+  std::vector<u32> sa(EM_TILE * EM_PITCH), sb(EM_TILE * EM_PITCH);
+  std::vector<u32> x(EM_TILE * NW);
+  const size_t N = (size_t)n;
+  for (size_t base = 0; base < N; base += EM_TILE) {
+    for (int tid = 0; tid < EM_TILE; ++tid) {
+      if (na == n) em_tile_load(a, N, base, tid, sa.data());
+      if (nb == n) em_tile_load(b, N, base, tid, sb.data());
+    }
+    for (int tid = 0; tid < EM_TILE; ++tid)
+      if (base + tid < N)
+        em_tile_product(f, sa.data(), sb.data(), a, (size_t)na, b,
+                        (size_t)nb, N, base + tid, tid, &x[tid * NW]);
+    for (int tid = 0; tid < EM_TILE; ++tid)
+      if (base + tid < N)
+        for (int k = 0; k < NW; ++k) sa[tid * EM_PITCH + k] = x[tid * NW + k];
+    for (int tid = 0; tid < EM_TILE; ++tid)
+      em_tile_store(out, N, base, tid, sa.data());
+  }
+}
+
+void hc_mont_mul_stage(const u32* fconsts, const int* a, const int* b,
+                       int* out, long long n, int stage) {
+  FieldConsts f = load_field_consts(fconsts);
+  for (long long i = 0; i < n; ++i)
+    stage_elem(f, a, b, out, (size_t)n, (size_t)i, stage);
+}
+
+void hc_mont_mul_part(const u32* fconsts, const int* a, const int* b,
+                      int* out, long long n, int part) {
+  FieldConsts f = load_field_consts(fconsts);
+  for (long long i = 0; i < n; ++i)
+    part_elem(f, a, b, out, (size_t)n, (size_t)i, part);
 }
 
 }  // extern "C"

@@ -17,13 +17,16 @@ import subprocess
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
+from typing import Dict
+
+import torch
 
 from ..utils.config import CONFIG
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
 SOURCES = ("field.cuh", "curve.cuh", "msm.cuh", "msm.cu", "msm_designs.cuh",
-           "msm_designs.cu")
+           "msm_designs.cu", "mont.cuh", "mont.cu", "conv_mma.cu")
 UNITS = tuple(s for s in SOURCES if s.endswith(".cu"))
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
@@ -100,6 +103,10 @@ def lib() -> ctypes.CDLL:
                 "hp_msm_chain": [P, P, P, I, I, I, P],
                 "hp_msm_bucket_tsplit": [P, P, P, P, I, I, I, I, P],
                 "hp_msm_bucket_signed": [P, P, P, P, I, I, I, P],
+                "hp_mont_mul": [P, P, LL, P, LL, P, LL, I, P],
+                "hp_mont_mul_stage": [P, P, P, P, LL, I, P],
+                "hp_mont_mul_part": [P, P, P, P, LL, I, P],
+                "hp_conv_mma": [P, P, P, LL, P],
             }.items():
                 fn = getattr(handle, name)
                 fn.argtypes = args
@@ -111,3 +118,56 @@ def lib() -> ctypes.CDLL:
 def check(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+# ---------------------------------------------------------------------------
+# What every kernel wrapper shares (ops/msm_pallas.py, ops/pallas_field.py).
+# ---------------------------------------------------------------------------
+
+# Launch counts: each wrapper adds one where it launches its kernel.
+launches: Dict[str, int] = {name: 0 for name in (
+    "msm_bucket", "msm_merge", "msm_wsum", "to_affine", "msm_chain",
+    "msm_bucket_tsplit", "msm_bucket_signed", "mont_mul", "mont_mul_stage",
+    "mont_mul_part", "conv_mma")}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def check_input(name: str, t: torch.Tensor, shape) -> None:
+    if t.dtype != torch.int32:
+        raise TypeError(f"{name}: want int32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: want shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: tensor must be contiguous")
+
+
+def on_cuda(name: str, *ts: torch.Tensor) -> bool:
+    """True if all of ts lie on one CUDA device, False if all on the CPU;
+    raises on anything else."""
+    devs = {t.device for t in ts}
+    if len(devs) != 1:
+        raise ValueError(f"{name}: tensors on different devices {devs}")
+    dev = devs.pop()
+    if dev.type == "cuda":
+        return True
+    if dev.type == "cpu":
+        return False
+    raise ValueError(f"{name}: unsupported device {dev}")
+
+
+def launch(name: str, fn, *args, device: torch.device) -> None:
+    """Run a kernel launcher on `device` and its current stream; raise if
+    the launch failed. Counts the launch."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        check(fn(*args, ctypes.c_void_p(stream)), name)
+    launches[name] += 1
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())

@@ -14,7 +14,11 @@ repack is a byte view (`digits_to_words`).
 
 Every op here is elementwise over the leading axes and runs on whatever
 device its inputs live on; results are canonical, so they equal the
-reference's bit for bit whatever the order of operations.
+reference's bit for bit whatever the order of operations. The public
+`mont_mul`, `to_mont` and `from_mont` go through ops/pallas_field.py: one
+launch of the mont_mul kernel for tensors on the card, the half-word code
+below for tensors on the CPU. The `h_*` functions are plain torch on
+either device.
 """
 
 from __future__ import annotations
@@ -287,16 +291,33 @@ def neg(spec: FieldSpec, a):
     return from_h16(h_neg(spec, to_h16(a)))
 
 
-def mont_mul(spec: FieldSpec, a, b):
+def mont_mul_plain(spec: FieldSpec, a, b):
+    """The half-word product on (..., 32) digits: what mont_mul computes
+    for CPU tensors, and the plain version of the mont_mul kernel."""
     return from_h16(h_mont_mul(spec, to_h16(a), to_h16(b)))
 
 
+def _pallas_field():
+    # Imported at call time: ops/pallas_field.py imports this module.
+    from . import pallas_field
+    return pallas_field
+
+
+def mont_mul(spec: FieldSpec, a, b):
+    """a * b * 2^-256 mod p on (..., 32) int32 digits (broadcasting): one
+    launch of the mont_mul kernel for tensors on the card, mont_mul_plain
+    for tensors on the CPU (ops/pallas_field.py: mont_mul_em)."""
+    return _pallas_field().mont_mul_em(spec, a, b)
+
+
 def to_mont(spec: FieldSpec, a):
-    return from_h16(h_to_mont(spec, to_h16(a)))
+    pf = _pallas_field()
+    return pf.mont_mul_em(spec, a, pf.const_digits(spec, "r2", a.device))
 
 
 def from_mont(spec: FieldSpec, a):
-    return from_h16(h_from_mont(spec, to_h16(a)))
+    pf = _pallas_field()
+    return pf.mont_mul_em(spec, a, pf.const_digits(spec, "unit", a.device))
 
 
 def inv(spec: FieldSpec, a):

@@ -49,24 +49,15 @@ import torch
 
 from . import curve as C
 from . import field as F
-from .cuda_lib import check, lib
+from .cuda_lib import check_input as _check_input, launch as _launch, \
+    launches, lib, on_cuda as _on_cuda, ptr as _ptr, \
+    reset_launches  # noqa: F401 (launches, reset_launches: callers read them here)
 
 RADIX_BITS = 4
 NBUCKET = 15          # digit values 1..15; digit 0 is skipped
 NSIGNED = 8           # signed-digit magnitudes 1..8 (csrc/msm_designs.cuh)
 MERGE_THREADS = 256   # lanes summed per thread stride in K2 (csrc/msm.cuh)
 NW = 8                # u32 words per field element
-
-# Launch counts: each wrapper adds one where it launches its kernel.
-launches: Dict[str, int] = {"msm_bucket": 0, "msm_merge": 0,
-                            "msm_wsum": 0, "to_affine": 0, "msm_chain": 0,
-                            "msm_bucket_tsplit": 0, "msm_bucket_signed": 0}
-
-
-def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
-
 
 # ---------------------------------------------------------------------------
 # Plan, digits and base layout.
@@ -152,41 +143,6 @@ def _consts_arg(spec: C.CurveSpec) -> ctypes.Array:
         w = consts_words(spec)
         _CONSTS[spec.name] = (ctypes.c_uint32 * len(w))(*w.tolist())
     return _CONSTS[spec.name]
-
-
-def _check_input(name: str, t: torch.Tensor, shape) -> None:
-    if t.dtype != torch.int32:
-        raise TypeError(f"{name}: want int32, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: want shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: tensor must be contiguous")
-
-
-def _on_cuda(name: str, *ts: torch.Tensor) -> bool:
-    devs = {t.device for t in ts}
-    if len(devs) != 1:
-        raise ValueError(f"{name}: tensors on different devices {devs}")
-    dev = devs.pop()
-    if dev.type == "cuda":
-        return True
-    if dev.type == "cpu":
-        return False
-    raise ValueError(f"{name}: unsupported device {dev}")
-
-
-def _launch(name: str, fn, *args, device: torch.device) -> None:
-    """Run a kernel launcher on `device` and its current stream; raise if
-    the launch failed. Counts the launch."""
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        check(fn(*args, ctypes.c_void_p(stream)), name)
-    launches[name] += 1
-
-
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
 
 
 def _proj_words(pt) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """The CUDA kernels' arithmetic and per-thread bodies, built for the host.
 
-csrc/field.cuh, curve.cuh, msm.cuh and msm_designs.cuh compile with g++ when
+csrc/field.cuh, curve.cuh, msm.cuh, msm_designs.cuh and mont.cuh compile with g++ when
 __CUDACC__ is undefined; csrc/host_check.cc wraps them in a ctypes library
 (built here into a temporary directory, as core/native_ff.py builds
 ffec.so). This checks the CIOS multiply and the RCB15 point formulas
@@ -21,6 +21,7 @@ import torch
 from hotproofs_tpu_torch.ops import curve as C
 from hotproofs_tpu_torch.ops import field as F
 from hotproofs_tpu_torch.ops import msm_pallas as MP
+from hotproofs_tpu_torch.ops import pallas_field as PF
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "hotproofs_tpu_torch" \
     / "csrc"
@@ -231,3 +232,103 @@ def test_to_affine_body_vs_plain_and_host(hc):
     keep = [i for i in range(len(Xw)) if i != 4]
     assert np.array_equal(_digits(x_h).numpy()[keep],
                           xa.reshape(-1, 32)[keep])
+
+
+# ---------------------------------------------------------------------------
+# The field-multiply kernels' bodies (csrc/mont.cuh).
+# ---------------------------------------------------------------------------
+
+MONT_FIELDS = ["pallas_base", "vesta_base", "bn254_base"]
+LL = ctypes.c_longlong
+
+
+def _mont_inputs(spec, n, seed):
+    """(n, 32) int32 numpy digits of canonical elements, edge lanes 0 * 0,
+    (p-1)^2 and 1 * (p-1) first, and the values as ints."""
+    rng = np.random.default_rng(seed)
+    avs, bvs = ([int.from_bytes(rng.bytes(32), "little") % spec.p
+                 for _ in range(n)] for _ in range(2))
+    avs[:3], bvs[:3] = [0, spec.p - 1, 1], [0, spec.p - 1, spec.p - 1]
+    return spec.batch_to_limbs(avs), spec.batch_to_limbs(bvs), avs, bvs
+
+
+def _mont_host(hc, spec, a, b, n, layout, shape):
+    """The mont_mul kernel's host replay on operands in `layout`: the tiled
+    element-major kernel, or the per-element body for the other two."""
+    out = np.zeros(shape, np.int32)
+    per = 8 if layout == PF.WORDS else 32
+    args = (_p(PF.field_consts_words(spec)), _p(a), LL(a.size // per), _p(b),
+            LL(b.size // per), _p(out), LL(n))
+    if layout == PF.EM:
+        hc.hc_mont_mul_em_tiled(*args)
+    else:
+        hc.hc_mont_mul_fmt(*args, layout)
+    return out
+
+
+@pytest.mark.parametrize("name", MONT_FIELDS)
+def test_mont_mul_body_in_every_format(hc, name):
+    """K5's load, pack, CIOS product and store, element-major (the kernel's
+    shared-memory tiles replayed, two full ones and a part), limb-major and
+    on words == the plain version and Python ints; a constant on either
+    side and a repeated block as broadcast operands."""
+    spec = F.FIELDS[name]
+    n = 293
+    a, b, avs, bvs = _mont_inputs(spec, n, seed=len(name))
+    want = PF.mont_mul_em_plain(spec, torch.from_numpy(a),
+                                torch.from_numpy(b)).numpy()
+    rinv = pow(1 << 256, -1, spec.p)
+    assert F.to_ints(spec, torch.from_numpy(want)) == \
+        [x * y * rinv % spec.p for x, y in zip(avs, bvs)]
+    assert np.array_equal(_mont_host(hc, spec, a, b, n, PF.EM, (n, 32)), want)
+    at, bt = np.ascontiguousarray(a.T), np.ascontiguousarray(b.T)
+    assert np.array_equal(_mont_host(hc, spec, at, bt, n, PF.LM, (32, n)),
+                          want.T)
+    aw = np.ascontiguousarray(F.digits_to_words(torch.from_numpy(a)).numpy())
+    bw = np.ascontiguousarray(F.digits_to_words(torch.from_numpy(b)).numpy())
+    got = _mont_host(hc, spec, aw, bw, n, PF.WORDS, (n, 8))
+    assert np.array_equal(
+        got, PF.mont_mul_words_plain(spec, torch.from_numpy(aw),
+                                     torch.from_numpy(bw)).numpy())
+    assert np.array_equal(F.words_to_digits(torch.from_numpy(got)).numpy(),
+                          want)
+    # broadcast: b one constant (to_mont's R^2), then b a block of 5
+    # elements repeated along the leading axis of a (7, 5, 32) operand
+    r2 = np.ascontiguousarray(spec.r2_limbs)
+    assert np.array_equal(
+        _mont_host(hc, spec, a, r2, n, PF.EM, (n, 32)),
+        F.to_mont(spec, torch.from_numpy(a)).numpy())
+    assert np.array_equal(
+        _mont_host(hc, spec, r2, a, n, PF.EM, (n, 32)),
+        F.to_mont(spec, torch.from_numpy(a)).numpy())
+    a35, b5 = np.ascontiguousarray(a[:35]), np.ascontiguousarray(b[:5])
+    assert np.array_equal(
+        _mont_host(hc, spec, a35, b5, 35, PF.EM, (35, 32)).reshape(7, 5, 32),
+        PF.mont_mul_em_plain(spec, torch.from_numpy(a35).reshape(7, 5, 32),
+                             torch.from_numpy(b5)).numpy())
+
+
+@pytest.mark.parametrize("name", MONT_FIELDS)
+def test_stage_and_part_bodies_vs_plain(hc, name):
+    """K10's five stages and K11a's three parts, per-thread code == the
+    digit-serial plain versions, element for element; stage 5 == K5."""
+    spec = F.FIELDS[name]
+    n = 41
+    a, b, _, _ = _mont_inputs(spec, n, seed=5)
+    # norm: 255 a + b below p, equal to p, and above it
+    a[3:6], b[3:6] = 0, spec.batch_to_limbs([spec.p - 1, 0, 7])
+    b[4] = spec.p_limbs
+    at, bt = np.ascontiguousarray(a.T), np.ascontiguousarray(b.T)
+    A, B = torch.from_numpy(at), torch.from_numpy(bt)
+    cw = PF.field_consts_words(spec)
+    for stage in PF.STAGES:
+        out = np.zeros_like(at)
+        hc.hc_mont_mul_stage(_p(cw), _p(at), _p(bt), _p(out), LL(n), stage)
+        assert np.array_equal(
+            out, PF.mont_mul_stage_plain(spec, A, B, stage).numpy()), stage
+    assert np.array_equal(out, PF.mont_mul_lm_plain(spec, A, B).numpy())
+    for i, part in enumerate(PF.PARTS):
+        out = np.zeros_like(at)
+        hc.hc_mont_mul_part(_p(cw), _p(at), _p(bt), _p(out), LL(n), i)
+        assert np.array_equal(
+            out, PF.mont_mul_part_plain(spec, A, B, part).numpy()), part

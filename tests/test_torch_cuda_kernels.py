@@ -15,6 +15,8 @@ from hotproofs_tpu_torch.nova.pedersen import CommitmentKey
 from hotproofs_tpu_torch.ops import curve as C
 from hotproofs_tpu_torch.ops import field as F
 from hotproofs_tpu_torch.ops import msm_pallas as MP
+from hotproofs_tpu_torch.ops import pallas_field as PF
+from hotproofs_tpu_torch.tools import field_mul as FM
 
 # pytest-xdist runs several workers on one host: one intra-op thread
 # each keeps them from oversubscribing the cores.
@@ -125,3 +127,75 @@ def test_wrappers_reject_bad_inputs(dev):
         MP.msm_bucket(SPEC, d, bases)
     with pytest.raises(ValueError):
         MP.msm_bucket(SPEC, d.to(torch.int32), bases.cpu())
+
+
+@pytest.mark.parametrize("name", ["pallas_base", "vesta_base", "bn254_base"])
+def test_field_multiply_kernels_vs_plain(dev, name):
+    """mont_mul in its three formats and with broadcast operands, the five
+    stages, the three parts and conv_mma == their plain versions, at a
+    size that is no multiple of 512, 128 or 8."""
+    spec = F.FIELDS[name]
+    n = 1037
+    rng = np.random.default_rng(len(name))
+    a, b = (FM.random_elements(rng, spec, n, dev) for _ in range(2))
+    edge = torch.from_numpy(spec.batch_to_limbs(
+        [0, spec.p - 1, 1, 0, spec.p - 1, spec.p - 1])).to(dev)
+    a[:3], b[:3] = edge[:3], edge[3:]
+    at, bt = a.T.contiguous(), b.T.contiguous()
+    before = dict(PF.launches)
+    want = PF.mont_mul_em_plain(spec, a, b)
+    assert torch.equal(PF.mont_mul_em(spec, a, b), want)
+    assert torch.equal(F.mont_mul(spec, a, b), want)
+    assert torch.equal(PF.mont_mul_lm(spec, at, bt), want.T)
+    aw, bw = F.digits_to_words(a), F.digits_to_words(b)
+    assert torch.equal(PF.mont_mul_words(spec, aw, bw),
+                       PF.mont_mul_words_plain(spec, aw, bw))
+    assert PF.launches["mont_mul"] == before["mont_mul"] + 4
+    # broadcasts: a constant, a repeated block, a written-out one, strides
+    a3 = a[:1020].reshape(4, 255, 32)
+    for x, y in ((a3, b[7]), (a3, b[:255]), (b[None, :255], a3),
+                 (a3, b[:4].reshape(4, 1, 32)), (a3[:, ::2], b[:128])):
+        assert torch.equal(PF.mont_mul_em(spec, x, y),
+                           PF.mont_mul_em_plain(spec, x, y))
+    assert torch.equal(F.to_mont(spec, a), PF.mont_mul_em_plain(
+        spec, a, PF.const_digits(spec, "r2", dev)))
+    assert torch.equal(F.from_mont(spec, F.to_mont(spec, a)), a)
+    for stage in PF.STAGES:
+        assert torch.equal(PF.mont_mul_stage(spec, at, bt, stage),
+                           PF.mont_mul_stage_plain(spec, at, bt, stage))
+    assert torch.equal(PF.mont_mul_stage(spec, at, bt, 5), want.T)
+    for part in PF.PARTS:
+        assert torch.equal(PF.mont_mul_part(spec, at, bt, part),
+                           PF.mont_mul_part_plain(spec, at, bt, part))
+    got = PF.conv_mma(at, bt)
+    assert torch.equal(got, PF.conv_mma_plain(at, bt))
+    assert torch.equal(got & 0xFF, PF.mont_mul_part(spec, at, bt, "conv"))
+    assert PF.launches["mont_mul_stage"] == before["mont_mul_stage"] + 6
+    assert PF.launches["mont_mul_part"] == before["mont_mul_part"] + 4
+    assert PF.launches["conv_mma"] == before["conv_mma"] + 1
+
+
+def test_field_multiply_wrappers_reject_bad_inputs(dev):
+    spec = F.pallas_base
+    em = FM.random_elements(np.random.default_rng(0), spec, 16, dev)
+    lm = em.T.contiguous()
+    with pytest.raises(TypeError):
+        F.mont_mul(spec, em.to(torch.int64), em)
+    with pytest.raises(ValueError):
+        PF.mont_mul_em(spec, em, em.cpu())
+    with pytest.raises(ValueError):
+        PF.mont_mul_em(spec, em[:, :8], em[:, :8])
+    for fn in (lambda x, y: PF.mont_mul_lm(spec, x, y),
+               lambda x, y: PF.mont_mul_stage(spec, x, y, 1),
+               lambda x, y: PF.mont_mul_part(spec, x, y, "norm"),
+               PF.conv_mma):
+        with pytest.raises(ValueError):
+            fn(em, em)                    # element-major where (32, N) is due
+        with pytest.raises(ValueError):
+            fn(em.T, em.T)                # limb-major view, not contiguous
+        with pytest.raises(ValueError):
+            fn(lm, lm.cpu())
+        with pytest.raises(TypeError):
+            fn(lm.to(torch.int64), lm)
+    with pytest.raises(ValueError):
+        PF.mont_mul_words(spec, em, em)

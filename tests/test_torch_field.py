@@ -98,3 +98,32 @@ def test_digit_word_repack_roundtrip():
     want = sum(flat[:, np.arange(0, 32, 4) + j] << np.uint64(8 * j)
                for j in range(4))
     assert np.array_equal(w.reshape(-1, 8).numpy().view(np.uint32), want)
+
+
+@pytest.mark.parametrize("name", ["pallas_scalar", "vesta_base", "bn254_base"])
+def test_public_mul_dispatch_broadcast_and_strides(name):
+    """mont_mul, to_mont and from_mont go through the kernel wrapper
+    (ops/pallas_field.mont_mul_em): on CPU tensors that is the half-word
+    code, whatever the operands' strides and broadcasting (the prover
+    multiplies a (32,) u by (n_cons, 32) rows, and strided views of
+    stacked batches)."""
+    spec, rspec = F.FIELDS[name], RF.FIELDS[name]
+    xs, ys = _inputs(spec, seed=21, n=48)
+    a_np, b_np = spec.batch_to_limbs(xs), spec.batch_to_limbs(ys)
+    a, b = torch.from_numpy(a_np), torch.from_numpy(b_np)
+    mul = RF.jitted("mul", rspec)
+    assert torch.equal(F.mont_mul(spec, a, b), F.mont_mul_plain(spec, a, b))
+    # one element against a batch, as relaxed_satisfied's u * Cz
+    got = F.mont_mul(spec, b[5][None], a)
+    assert np.array_equal(got.numpy(), np.asarray(
+        mul(np.broadcast_to(b_np[5], a_np.shape).copy(), a_np)))
+    # a strided view of a stacked batch, as the fold loop's az_b[:, k]
+    stacked = torch.stack([a, b], dim=1)               # (48, 2, 32)
+    got = F.mont_mul(spec, stacked[:, 1], stacked[:, 0])
+    assert np.array_equal(got.numpy(), np.asarray(mul(b_np, a_np)))
+    batch = a.reshape(4, 12, 32)
+    for op in ("to_mont", "from_mont"):
+        got = getattr(F, op)(spec, batch)
+        assert got.shape == batch.shape and got.dtype == torch.int32
+        assert np.array_equal(got.reshape(48, 32).numpy(),
+                              np.asarray(RF.jitted(op, rspec)(a_np)))

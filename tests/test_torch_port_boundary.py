@@ -25,6 +25,7 @@ from hotproofs_tpu_torch.models import chunk_prover as CP
 from hotproofs_tpu_torch.nova.transcript import Transcript
 from hotproofs_tpu_torch.ops import curve as C
 from hotproofs_tpu_torch.ops import poseidon as P
+from hotproofs_tpu_torch.tools import field_mul as FM
 from hotproofs_tpu_torch.tools import msm_designs as D
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -56,6 +57,7 @@ _IMPORTS = r"""
 import sys
 import hotproofs_tpu_torch.models.chunk_prover
 import hotproofs_tpu_torch.tools.msm_designs
+import hotproofs_tpu_torch.tools.field_mul
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib")
              or (m.startswith("hotproofs_tpu")
@@ -144,12 +146,13 @@ def test_entry_points_default_to_the_card(capsys):
             CP.main(argv)
         assert e.value.code == 0
         assert "default: cuda" in capsys.readouterr().out
-    with pytest.raises(SystemExit):
-        D.main(["--help"])
-    assert "default: cuda" in capsys.readouterr().out
+    for tool in (D, FM):
+        with pytest.raises(SystemExit):
+            tool.main(["--help"])
+        assert "default: cuda" in capsys.readouterr().out
     if torch.cuda.is_available():
         pytest.skip("a card is present: the no-card error cannot show")
-    for make in (CP.ChunkProver, lambda: D.main([]),
+    for make in (CP.ChunkProver, lambda: D.main([]), lambda: FM.main([]),
                  lambda: CP.main(["verify", "--proof", "x"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
