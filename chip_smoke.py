@@ -9,8 +9,11 @@ exit and no result line:
   1. the card (nvidia-smi name and power limit) and the toolchain;
   2. build the CUDA kernels from csrc/ (nvcc, sm_90a) and time the build;
   3. each kernel against its plain torch version on the card, on seeded
-     inputs (exact integer equality), then kernel and plain times at the
-     main path's shapes;
+     inputs (exact integer equality; the merge with several blocks per slot
+     over lanes no multiple of them, a sparse batch whose buckets are
+     mostly empty, and a job of zero scalars whose buckets and slots must
+     all be the identity), then kernel and plain times at the main path's
+     shapes;
   4. the main path at full circuit size: ChunkProver(device="cuda") proves
      one chunk of a 64 MiB file (depth 16), verifies it against the BLAKE3
      oracle's root, proves two chunks in lockstep (prove_many), verifies
@@ -20,9 +23,14 @@ exit and no result line:
      msm_bucket_tsplit, msm_bucket_signed and the 8-slot merge and wsum
      against their plain versions (seeded, m = 1000, 40 and 256 bits, then
      at the comm_T shape, exact equality, kernel and plain times), then
-     the designs path at the comm_T, W J=16 and W J=256 shapes: one line
-     per shape and design with its time and its check, and the design
-     kernels' launch counts during that run (every one must be > 0);
+     the designs path at the comm_T J=1, W J=16, W J=256 and comm_T J=16
+     shapes: per shape
+     the production stages' times, its digit statistics (nonzero share per
+     window, touched share of the (lane, bucket) entries, adds per warp in
+     lockstep against the sorted walk), the whole msm_many at B = 64, 32
+     and 16, and one line per design with its time and its
+     check; then the design kernels' launch counts during that run (every
+     one must be > 0);
   7. the field-multiply path (tools/field_mul.py): mont_mul in its three
      formats and with broadcast operands, mont_mul_stage (stages 1..5),
      mont_mul_part (conv, conv3, norm) and conv_mma against their plain
@@ -130,6 +138,21 @@ def nbytes(*ts: torch.Tensor) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def merge_bound(bk: torch.Tensor, red: torch.Tensor, rate: float):
+    """(bound, bound_by, tree_bound) of msm_merge on buckets bk: one
+    complete add fewer than the nonempty buckets (Z != 0) of each (job,
+    slot), the least that sums them, beside the count that adds the
+    kernel's trees over each slot's G threads in full (tree_bound, ms)."""
+    from hotproofs_tpu_torch.ops import msm_pallas as MP
+    J, S, L = bk.shape[0], bk.shape[1], bk.shape[-1]
+    live = (bk[:, :, 2] != 0).any(dim=2).sum(dim=2)         # (J, S)
+    least = int((live - 1).clamp(min=0).sum())
+    G = MP.merge_group(J, S, L)     # a slot's G sums take G - 1 adds
+    trees = int(live.sum()) + J * S * (G - 1)
+    ms, by = bound(MONT_ADD * least, nbytes(bk, red), rate)
+    return ms, by, bound(MONT_ADD * trees, nbytes(bk, red), rate)[0]
+
+
 def max_err(a: torch.Tensor, b: torch.Tensor) -> int:
     require(a.shape == b.shape, f"shapes {a.shape} != {b.shape}")
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item()) \
@@ -228,9 +251,9 @@ def designs_phase(prover, data, dev, rng, note, stats, bounds,
         "msm_bucket_signed": bound(MONT_MIXED_ADD * slive,
                                    nbytes(inp.sdigits, inp.sbases)
                                    + signed_out, rate),
-        "msm_merge S=8": bound(
-            MONT_ADD * J * MP.NSIGNED * (SL + MP.MERGE_THREADS - 1),
-            signed_out + J * MP.NSIGNED * pt, rate),
+        "msm_merge S=8": merge_bound(
+            MP.msm_bucket_signed(spec, inp.sdigits, inp.sbases),
+            torch.empty(J, MP.NSIGNED, 3, 8, dtype=torch.int32), rate)[:2],
         "msm_wsum S=8": bound(MONT_ADD * J * 2 * MP.NSIGNED,
                               J * MP.NSIGNED * pt + J * pt, rate),
     }
@@ -247,10 +270,8 @@ def designs_phase(prover, data, dev, rng, note, stats, bounds,
     res = D.run(prover, data, rng, out=lambda line: say("6 designs", line))
     torch.cuda.synchronize()
     design_counts = dict(MP.launches)
-    require(all(d["ok"] for tag in D.SHAPES
-                for d in res[tag]["designs"].values()),
-            "a design's MSM disagrees with msm_many (or msm_chain with its "
-            "plain version)")
+    require(D.all_ok(res), "a design's MSM, or msm_many's at another B, "
+            "disagrees with msm_many (or msm_chain with its plain version)")
     say("6 launches", ", ".join(f"{k} {design_counts[k]}" for k in DESIGNS))
     for k in DESIGNS:
         require(design_counts[k] > 0, f"{k} was not launched on the "
@@ -444,6 +465,8 @@ def main() -> int:
     say("3 kernels", f"to_affine == plain on {X.shape[0]} points")
 
     def chain_check(scalars, bases, m, bits, tag):
+        """bucket, merge and wsum == plain on scalars; a job of zero
+        scalars must leave every bucket and slot the identity (Z = 0)."""
         b, lpw, w4, n_lanes = MP.plan(m, bits)
         d = MP.digits_tm(scalars, m, b, lpw, w4)
         bk = MP.msm_bucket(spec, d, bases)
@@ -453,19 +476,34 @@ def main() -> int:
         s = MP.msm_wsum(spec, red)
         note("msm_wsum", s, MP.msm_wsum_plain(spec, red))
         torch.cuda.synchronize()
+        zero = [j for j in range(scalars.shape[0])
+                if not bool(scalars[j].any())]
+        for j in zero:
+            require(not bool(bk[j, :, 2].any()) and not bool(red[j, :, 2]
+                                                         .any()),
+                    f"{tag}: the zero job {j} left a nonempty bucket")
+        G = MP.merge_group(*bk.shape[:2], n_lanes)
+        empty = float((bk[:, :, 2] == 0).all(dim=2).float().mean())
         say("3 kernels", f"{tag}: bucket, merge, wsum == plain "
             f"(J={scalars.shape[0]}, m={m}, {bits} bits, B={b}, "
-            f"{n_lanes} lanes)")
+            f"{n_lanes} lanes; merge G={G} threads a slot, "
+            f"{max(G // MP.MERGE_THREADS, 1)} blocks a slot, lanes mod G = "
+            f"{n_lanes % G}; empty buckets {empty:.4f}; zero jobs {zero} "
+            "all identity)")
         return d, bk, red
 
     m = 1000
-    for bits in (40, 256):
+    for tag, bits in (("seeded 40", 40), ("seeded 256", 256),
+                      ("seeded 40, sparse", 40)):
         raw = rng.integers(0, 256, size=(3, m, 32), dtype=np.int64)
+        if tag.endswith("sparse"):   # 5 % of the points, low byte only:
+            raw[:, rng.random(m) >= 0.05] = 0       # most buckets empty
+            raw[..., 1:] = 0
         raw[..., (bits + 7) // 8:] = 0
         raw[:, :, 31] &= 0x3F                       # < 2^254 < group order
         raw[1] = 0                                  # all-zero job
         sc = torch.from_numpy(raw.astype(np.int32)).to(dev)
-        chain_check(sc, tmp_key.bases(m, bits), m, bits, f"seeded {bits}")
+        chain_check(sc, tmp_key.bases(m, bits), m, bits, tag)
         got = tmp_key.affine(MP.msm_many(spec, sc, tmp_key.bases(m, bits),
                                          m, bits))
         require(got[1] is None, "all-zero job must give the identity")
@@ -505,11 +543,11 @@ def main() -> int:
         raw[..., (bits + 7) // 8:] = 0
         raw[:, :, 31] &= 0x3F
         sc = torch.from_numpy(raw.astype(np.int32)).to(dev)
-        bases = tmp_key.bases(mm, bits)
+        bases, lm = tmp_key.bases(mm, bits), tmp_key.bases_lm(mm, bits)
         d, bk, red = chain_check(sc, bases, mm, bits, tag)
         times = {}
         for name, kern, plain in (
-                ("msm_bucket", lambda: MP.msm_bucket(spec, d, bases),
+                ("msm_bucket", lambda: MP.msm_bucket(spec, d, bases, lm),
                  lambda: MP.msm_bucket_plain(spec, d, bases)),
                 ("msm_merge", lambda: MP.msm_merge(spec, bk),
                  lambda: MP.msm_merge_plain(spec, bk)),
@@ -521,15 +559,18 @@ def main() -> int:
                 stats[name]["ms"], stats[name]["plain_ms"] = times[name]
         if tag == "comm_T J=1":
             live = int((d != 0).sum())
-            S, L = bk.shape[1], bk.shape[-1]
+            S = bk.shape[1]
             bounds["msm_bucket"] = bound(MONT_MIXED_ADD * live,
                                          nbytes(d, bases, bk), rate)
-            bounds["msm_merge"] = bound(
-                MONT_ADD * J * S * (L + MP.MERGE_THREADS - 1),
-                nbytes(bk, red), rate)
+            least, by, trees = merge_bound(bk, red, rate)
+            bounds["msm_merge"] = (least, by)
+            say("3 times", f"{tag}: msm_merge bound {least:.4f} ms (one add "
+                "fewer than the nonempty buckets of each slot); "
+                f"{trees:.4f} ms counting the block trees and finish in full")
             bounds["msm_wsum"] = bound(MONT_ADD * J * 2 * S,
                                        nbytes(red) + J * 3 * 8 * 4, rate)
-        chain = cuda_ms(lambda: MP.msm_many(spec, sc, bases, mm, bits), 5)
+        chain = cuda_ms(lambda: MP.msm_many(spec, sc, bases, mm, bits,
+                                            bases_lm=lm), 5)
         say("3 times", f"{tag}: " + ", ".join(
             f"{k} {v[0]:.3f} ms (plain {v[1]:.1f} ms)"
             for k, v in times.items()) + f"; whole msm_many {chain:.3f} ms")

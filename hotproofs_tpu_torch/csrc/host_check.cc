@@ -2,7 +2,8 @@
 // tests only (tests/test_torch_cuda_host.py builds it with g++ into a
 // temporary directory and loads it with ctypes). Each entry point runs the
 // same code a CUDA thread runs, over every index of the launch; hc_msm_merge
-// replays the kernel's strided accumulation and shared-memory tree in order.
+// replays the kernel's blocks, warp-shuffle and warp trees and last-block
+// finish in order.
 // Nothing on the prover's path loads this library.
 #include <vector>
 
@@ -55,27 +56,73 @@ void hc_point_op(const u32* consts, const u32* p, const u32* q, u32* out,
   }
 }
 
-void hc_msm_bucket(const u32* consts, const int* digits, const u32* bases,
-                   u32* buckets, int J, int B, int n_lanes) {
-  Consts c = load_consts(consts);
-  for (int j = 0; j < J; ++j)
-    for (int l = 0; l < n_lanes; ++l)
-      bucket_lane(c, digits, bases, buckets, B, n_lanes, j, l);
+// msm.cuh's launch constants, in the order NBUCKET, BUCKET_LANES,
+// BUCKET_MAX_STEPS, MERGE_THREADS, MERGE_TARGET_THREADS; and merge_group.
+void hc_msm_constants(int* out) {
+  const int v[] = {NBUCKET, BUCKET_LANES, BUCKET_MAX_STEPS, MERGE_THREADS,
+                   MERGE_TARGET_THREADS};
+  for (int i = 0; i < 5; ++i) out[i] = v[i];
 }
 
+int hc_merge_group(int J, int S, int n_lanes) {
+  return merge_group(J, S, n_lanes);
+}
+
+// bucket_walk for every (job, lane) over lane-major bases; each thread's
+// byte columns are its own, so one set of stride-1 columns serves them in
+// turn.
+void hc_msm_bucket(const u32* consts, const int* digits, const u32* bases_lm,
+                   u32* buckets, int J, int B, int n_lanes) {
+  Consts c = load_consts(consts);
+  std::vector<unsigned char> dig(B), list(B), cnt(NBUCKET + 1);
+  for (int j = 0; j < J; ++j)
+    for (int l = 0; l < n_lanes; ++l)
+      bucket_walk(c, digits, bases_lm, buckets, B, n_lanes, j, l, dig.data(),
+                  list.data(), cnt.data(), 1);
+}
+
+// k_msm_merge's group_sum over the n = 32 * nw accumulators v[0..n) of
+// one group: 5 levels in each warp (lane i < off takes lane i + off), then
+// the same over the nw warp sums. Returns the sum.
+static Proj group_sum(const Consts& c, Proj* v, int nw) {
+  std::vector<Proj> ws(nw);
+  for (int w = 0; w < nw; ++w) {
+    Proj* lane = v + 32 * w;
+    for (int off = 16; off > 0; off >>= 1)
+      for (int i = 0; i < off; ++i) acc_add(c, lane[i], lane[i + off]);
+    ws[w] = lane[0];
+  }
+  for (int off = nw / 2; off > 0; off >>= 1)
+    for (int i = 0; i < off; ++i) acc_add(c, ws[i], ws[i + off]);
+  return ws[0];
+}
+
+// k_msm_merge slot by slot: the G threads' strided sums, then their group
+// sum (G <= MERGE_THREADS), or the group sums of the P = G /
+// MERGE_THREADS blocks and the last block's sum of those P partials
+// padded with the identity.
 void hc_msm_merge(const u32* consts, const u32* buckets, u32* reduced, int J,
                   int S, int n_lanes) {
   Consts c = load_consts(consts);
-  std::vector<Proj> sh(MERGE_THREADS);
+  const int G = merge_group(J, S, n_lanes);
+  std::vector<Proj> v(G), part(MERGE_THREADS);
   for (int js = 0; js < J * S; ++js) {
-    int j = js / S, s = js % S;
-    for (int tid = 0; tid < MERGE_THREADS; ++tid)
-      merge_thread(c, buckets, S, n_lanes, j, s, tid, MERGE_THREADS,
-                   sh[tid]);
-    for (int h = MERGE_THREADS / 2; h > 0; h >>= 1)
-      for (int tid = 0; tid < h; ++tid)
-        pt_add(c, sh[tid], sh[tid + h], sh[tid]);
-    store_proj(reduced + (size_t)js * 3 * NW, 1, sh[0]);
+    for (int g = 0; g < G; ++g)
+      merge_thread(c, buckets, S, n_lanes, js / S, js % S, g, G, v[g]);
+    Proj r;
+    if (G <= MERGE_THREADS) {
+      r = group_sum(c, v.data(), G / 32);
+    } else {
+      const int P = G / MERGE_THREADS;
+      for (int p = 0; p < MERGE_THREADS; ++p) {
+        if (p < P)
+          part[p] = group_sum(c, &v[p * MERGE_THREADS], MERGE_WARPS);
+        else
+          pt_identity(c, part[p]);
+      }
+      r = group_sum(c, part.data(), MERGE_WARPS);
+    }
+    store_proj(reduced + (size_t)js * 3 * NW, 1, r);
   }
 }
 

@@ -5,18 +5,39 @@
 // returns cudaGetLastError().
 //
 // K1 msm_bucket replaces _bucket_kernel (hotproofs_tpu/ops/msm_pallas.py:210).
-//   One thread per (job, lane) streams its B affine bases and mixed-adds each
-//   into one of 15 projective buckets picked by its radix-16 digit. Bound by
-//   integer multiply throughput: each base costs one 11-multiply RCB15 mixed
-//   add (~11 x 128 32-bit multiply-adds). The bases are time-major, so at
-//   each step a warp reads 32 consecutive words per coordinate word
-//   (coalesced); the 15 buckets (1.4 KB) live in thread-local memory, which
-//   L1 caches. All J jobs read the same base array.
+//   One thread per (job, lane), BUCKET_LANES lanes of one job per block.
+//   Work: one 11-multiply RCB15 mixed add per nonzero digit. What bounds
+//   it is latency, not the multiplier: at comm_T (16k lanes, about one
+//   warp per scheduler) each lane's ~60 dependent adds run at the latency
+//   of their multiply chains, and at the W shapes (5 % of the digits
+//   nonzero, up to 53 in one lane) a warp takes as long as its busiest
+//   lane. A thread that keeps 15 buckets indexed by the digit (bucket_range,
+//   the t-split's body) holds them in local memory (255 registers and a
+//   2 KB stack, two blocks per SM), and its warp runs an add at every step
+//   where any lane has a nonzero digit. Here instead a counting sort in
+//   shared memory lists each lane's nonzero steps grouped by digit, and
+//   one loop walks that list with one accumulator in registers (msm.cuh:
+//   bucket_walk): a warp runs as many adds as its busiest lane has nonzero
+//   digits. Two costs come with the walk, since the lanes of a warp stand
+//   at different steps: a time-major base row per word (a sector a word
+//   across a warp), answered by a lane-major copy of the bases read as
+//   four 16-byte vectors, and bucket stores at different times, answered
+//   by keeping finished buckets in local memory and storing all 15 in one
+//   coalesced pass at the end.
 // K2 msm_merge replaces _merge_kernel (msm_pallas.py:288).
-//   One 256-thread block per (job, slot) of S slots (15, or 8 for the
-//   signed-digit buckets): each thread adds a strided subset of lanes, then
-//   a shared-memory halving tree. Bound by the serial complete-add chain
-//   per thread (n_lanes / 256 adds, then 8 tree levels).
+//   P blocks of MERGE_THREADS threads per (job, slot), P = merge_parts(J,
+//   S, n_lanes) so that the grid holds about 4 blocks per SM (P = 36 at
+//   comm_T, where one block per (job, slot) filled 15 of 132 SMs; P = 1 at
+//   W J=256). Work: one 12-multiply complete add per nonempty bucket and
+//   per node of the trees; at the W shapes 99 % of the buckets are empty.
+//   A thread sums its strided lanes, loading X and Y only where Z is not 0;
+//   then 5 warp-shuffle levels and 3 over the warps replace an 8-level
+//   shared-memory tree, and every add with the identity on one side is
+//   skipped, so a warp of empty buckets runs no add at all. Each block
+//   stores its partial; the one that draws the last ticket of an atomic
+//   counter (zeroed by the wrapper) sums the P partials by the same tree
+//   in index order, so the result does not depend on which block ends
+//   last. Bound by the latency of the dependent adds along the tree.
 // K3 msm_wsum replaces _wsum_kernel (msm_pallas.py:358).
 //   One thread per job: 2S complete adds of the running suffix sum. Latency
 //   bound and tiny; it exists so the chain never leaves the device.
@@ -31,38 +52,109 @@
 
 using namespace hp;
 
-__global__ void k_msm_bucket(Consts c, const int* __restrict__ digits,
-                             const u32* __restrict__ bases,
-                             u32* __restrict__ buckets, int J, int B,
-                             int n_lanes) {
-  long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (gid >= (long long)J * n_lanes) return;
-  int j = (int)(gid / n_lanes);
-  int l = (int)(gid % n_lanes);
-  bucket_lane(c, digits, bases, buckets, B, n_lanes, j, l);
+__global__ void __launch_bounds__(BUCKET_LANES)
+    k_msm_bucket(Consts c, const int* __restrict__ digits,
+                 const u32* __restrict__ bases_lm, u32* __restrict__ buckets,
+                 int B, int n_lanes) {
+  __shared__ unsigned char dig[BUCKET_MAX_STEPS * BUCKET_LANES];
+  __shared__ unsigned char list[BUCKET_MAX_STEPS * BUCKET_LANES];
+  __shared__ unsigned char cnt[(NBUCKET + 1) * BUCKET_LANES];
+  const int t = threadIdx.x;
+  const int l = blockIdx.x * BUCKET_LANES + t;
+  if (l >= n_lanes) return;
+  bucket_walk(c, digits, bases_lm, buckets, B, n_lanes, blockIdx.y, l,
+              dig + t, list + t, cnt + t, BUCKET_LANES);
 }
 
-__global__ void __launch_bounds__(MERGE_THREADS)
-    k_msm_merge(Consts c, const u32* __restrict__ buckets,
-                u32* __restrict__ reduced, int S, int n_lanes) {
-  __shared__ Proj sh[MERGE_THREADS];
-  const int js = blockIdx.x;
-  const int j = js / S, s = js % S;
-  const int tid = threadIdx.x;
-  Proj acc;
-  merge_thread(c, buckets, S, n_lanes, j, s, tid, MERGE_THREADS, acc);
-  sh[tid] = acc;
-  __syncthreads();
-  for (int h = MERGE_THREADS / 2; h > 0; h >>= 1) {
-    if (tid < h) {
-      Proj a = sh[tid];
-      Proj b = sh[tid + h];
-      pt_add(c, a, b, a);
-      sh[tid] = a;
-    }
-    __syncthreads();
+__device__ __forceinline__ void shfl_down_proj(const Proj& a, int off,
+                                               Proj& r) {
+#pragma unroll
+  for (int k = 0; k < NW; ++k) {
+    r.x[k] = __shfl_down_sync(0xffffffffu, a.x[k], off);
+    r.y[k] = __shfl_down_sync(0xffffffffu, a.y[k], off);
+    r.z[k] = __shfl_down_sync(0xffffffffu, a.z[k], off);
   }
-  if (tid == 0) store_proj(reduced + (size_t)js * 3 * NW, 1, sh[0]);
+}
+
+// Sums within groups of a merge block's threads: 5 shuffle levels in each
+// warp (lane i < off takes lane i + off), then the same over the warp sums
+// of each group of nw warps (nw = 1, 2 or MERGE_WARPS) in warp 0's first
+// MERGE_WARPS lanes. Lane i of warp 0 with i % nw == 0 ends with the sum
+// of group i / nw. The host replay is hc_msm_merge.
+__device__ __noinline__ void group_sum(const Consts& c, Proj& acc, Proj* sh, int nw) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll 1
+  for (int off = 16; off > 0; off >>= 1) {
+    Proj o;
+    shfl_down_proj(acc, off, o);
+    if (lane < off) acc_add(c, acc, o);
+  }
+  if (lane == 0) sh[warp] = acc;
+  __syncthreads();
+  if (warp != 0) return;
+  if (lane < MERGE_WARPS)
+    acc = sh[lane];
+  else
+    pt_identity(c, acc);
+#pragma unroll 1
+  for (int off = nw / 2; off > 0; off >>= 1) {
+    Proj o;
+    shfl_down_proj(acc, off, o);
+    if (lane < MERGE_WARPS && lane % nw < off) acc_add(c, acc, o);
+  }
+}
+
+// Thread gid = blockIdx.x * MERGE_THREADS + threadIdx.x is thread gid % G
+// of slot gid / G (slot = job * S + s). With G <= MERGE_THREADS a block
+// sums MERGE_THREADS / G slots whole; above it, P = G / MERGE_THREADS
+// blocks each store a partial, and the last to draw a ticket sums them.
+__global__ void __launch_bounds__(MERGE_THREADS, 4)
+    k_msm_merge(Consts c, const u32* __restrict__ buckets,
+                u32* __restrict__ reduced, u32* partials, int* tickets,
+                int J, int S, int n_lanes, int G) {
+  __shared__ Proj sh[MERGE_WARPS];
+  __shared__ int last;
+  const long long gid = (long long)blockIdx.x * MERGE_THREADS + threadIdx.x;
+  const int js = (int)(gid / G);
+  Proj acc;
+  if (js < J * S)
+    merge_thread(c, buckets, S, n_lanes, js / S, js % S, (int)(gid % G), G,
+                 acc);
+  else
+    pt_identity(c, acc);
+  if (G <= MERGE_THREADS) {
+    const int nw = G / 32;
+    group_sum(c, acc, sh, nw);
+    const int i = threadIdx.x;
+    const long long out = ((long long)blockIdx.x * MERGE_THREADS + i * 32) / G;
+    if (i < MERGE_WARPS && i % nw == 0 && out < (long long)J * S)
+      store_proj(reduced + (size_t)out * 3 * NW, 1, acc);
+    return;
+  }
+  group_sum(c, acc, sh, MERGE_WARPS);
+  const int P = G / MERGE_THREADS, p = blockIdx.x % P;
+  // Publish the partial, then draw a ticket: the block that draws P - 1
+  // is the last of its slot and finishes it.
+  if (threadIdx.x == 0) {
+    store_proj(partials + ((size_t)js * P + p) * 3 * NW, 1, acc);
+    __threadfence();
+    last = atomicAdd(&tickets[js], 1) == P - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  if ((int)threadIdx.x < P) {
+    const u32* src = partials + ((size_t)js * P + threadIdx.x) * 3 * NW;
+    for (int k = 0; k < NW; ++k) {  // L2 reads: other SMs wrote them
+      acc.x[k] = __ldcg(src + k);
+      acc.y[k] = __ldcg(src + NW + k);
+      acc.z[k] = __ldcg(src + 2 * NW + k);
+    }
+  } else {
+    pt_identity(c, acc);
+  }
+  group_sum(c, acc, sh, MERGE_WARPS);
+  if (threadIdx.x == 0) store_proj(reduced + (size_t)js * 3 * NW, 1, acc);
 }
 
 __global__ void k_msm_wsum(Consts c, const u32* __restrict__ reduced,
@@ -81,20 +173,28 @@ __global__ void k_to_affine(Consts c, const u32* __restrict__ X,
 
 extern "C" {
 
-int hp_msm_bucket(const u32* consts, const int* digits, const u32* bases,
+// bases_lm: the lane-major (n_lanes, B, 2, 8) bases, 16-byte aligned.
+int hp_msm_bucket(const u32* consts, const int* digits, const u32* bases_lm,
                   u32* buckets, int J, int B, int n_lanes, void* stream) {
-  const int threads = 128;
-  long long n = (long long)J * n_lanes;
-  k_msm_bucket<<<blocks_for(n, threads), threads, 0,
-                 (cudaStream_t)stream>>>(load_consts(consts), digits, bases,
-                                         buckets, J, B, n_lanes);
+  if (B > BUCKET_MAX_STEPS || J > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid(blocks_for(n_lanes, BUCKET_LANES), J);
+  k_msm_bucket<<<grid, BUCKET_LANES, 0, (cudaStream_t)stream>>>(
+      load_consts(consts), digits, bases_lm, buckets, B, n_lanes);
   return (int)cudaGetLastError();
 }
 
-int hp_msm_merge(const u32* consts, const u32* buckets, u32* reduced, int J,
-                 int S, int n_lanes, void* stream) {
-  k_msm_merge<<<J * S, MERGE_THREADS, 0, (cudaStream_t)stream>>>(
-      load_consts(consts), buckets, reduced, S, n_lanes);
+// partials: (J, S, P, 3, 8) scratch and tickets: J * S zeroed ints, for
+// G = merge_group(J, S, n_lanes) > MERGE_THREADS, P = G / MERGE_THREADS
+// (unused otherwise).
+int hp_msm_merge(const u32* consts, const u32* buckets, u32* reduced,
+                 u32* partials, int* tickets, int J, int S, int n_lanes,
+                 void* stream) {
+  const int G = merge_group(J, S, n_lanes);
+  const long long threads = (long long)J * S * G;
+  k_msm_merge<<<blocks_for(threads, MERGE_THREADS), MERGE_THREADS, 0,
+                (cudaStream_t)stream>>>(load_consts(consts), buckets,
+                                        reduced, partials, tickets, J, S,
+                                        n_lanes, G);
   return (int)cudaGetLastError();
 }
 

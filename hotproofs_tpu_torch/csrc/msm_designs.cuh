@@ -18,7 +18,7 @@ constexpr int NSIGNED = 8;  // signed-digit magnitudes 1..8; 0 is skipped
 
 // msm_chain body: lane l of job j mixed-adds all B streamed bases, padding
 // points included, into one accumulator that starts at the identity. No
-// digit is read: the add chain of bucket_lane without its bucket select.
+// digit is read: the add chain of bucket_range without its bucket select.
 HP_HD void chain_lane(const Consts& c, const u32* bases, u32* out, int B,
                       int n_lanes, int j, int l) {
   Proj acc;

@@ -6,6 +6,8 @@ through the MSM chain of ops/msm_pallas.py over bases pre-scaled by 16^w:
 `scaled_affine` doubles the generators in plain torch on the key's device
 and converts them to affine with the to_affine kernel, once per key; the
 result is cached on disk under the port's own `torch_scaledaff_*` names.
+The kernel layouts of those bases (time-major, and the lane-major copy the
+bucket kernel reads) are made once per key prefix and kept on the key.
 
 Witness vectors carry a static small/large split: the few full-width
 positions (big_idx) commit at 256 bits, everything else at SMALL_BITS.
@@ -104,6 +106,16 @@ class CommitmentKey:
                                            m, max_bits)
         return self._bases[key]
 
+    def bases_lm(self, m: int, max_bits: int) -> torch.Tensor:
+        """The bucket kernel's lane-major copy of bases(m, max_bits)."""
+        return self._lane_major((m, MP.n_windows4(max_bits)),
+                                self.bases(m, max_bits))
+
+    def _lane_major(self, key, bases: torch.Tensor) -> torch.Tensor:
+        if ("lm",) + key not in self._bases:
+            self._bases[("lm",) + key] = MP.lane_major(bases)
+        return self._bases[("lm",) + key]
+
     def bases_big(self, big_idx: np.ndarray) -> torch.Tensor:
         """MSM kernel layout of the full-width positions' generators."""
         key = ("big",) + tuple(int(v) for v in big_idx)
@@ -115,6 +127,11 @@ class CommitmentKey:
                                            len(big_idx), 256)
         return self._bases[key]
 
+    def bases_big_lm(self, big_idx: np.ndarray) -> torch.Tensor:
+        """The bucket kernel's lane-major copy of bases_big(big_idx)."""
+        return self._lane_major(("big",) + tuple(int(v) for v in big_idx),
+                                self.bases_big(big_idx))
+
     # -- commitments ----------------------------------------------------------
     def commit_many(self, scalars: torch.Tensor,
                     max_bits: int = 256) -> C.Point:
@@ -122,7 +139,7 @@ class CommitmentKey:
         prefix: projective Montgomery (J, 32) x3."""
         m = scalars.shape[1]
         return MP.msm_many(self.spec, scalars, self.bases(m, max_bits), m,
-                           max_bits)
+                           max_bits, bases_lm=self.bases_lm(m, max_bits))
 
     def commit(self, scalars: torch.Tensor, max_bits: int = 256) -> C.Point:
         """One commitment of (m, 32) canonical scalars: (32,) x3."""
@@ -141,11 +158,12 @@ class CommitmentKey:
             raise ValueError(f"witness value >= 2^{SMALL_BITS} outside "
                              "big_idx (would truncate in the small MSM)")
         acc = MP.msm_many(self.spec, small, self.bases(m, SMALL_BITS), m,
-                          SMALL_BITS)
+                          SMALL_BITS, bases_lm=self.bases_lm(m, SMALL_BITS))
         if len(big_idx) == 0:
             return acc
         accb = MP.msm_many(self.spec, scalars[:, big].contiguous(),
-                           self.bases_big(big_idx), len(big_idx), 256)
+                           self.bases_big(big_idx), len(big_idx), 256,
+                           bases_lm=self.bases_big_lm(big_idx))
         return C.pt_add(self.spec, acc, accb)
 
     def affine(self, pt: C.Point) -> list:

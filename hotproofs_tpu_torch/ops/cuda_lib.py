@@ -97,7 +97,7 @@ def lib() -> ctypes.CDLL:
             P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             for name, args in {
                 "hp_msm_bucket": [P, P, P, P, I, I, I, P],
-                "hp_msm_merge": [P, P, P, I, I, I, P],
+                "hp_msm_merge": [P, P, P, P, P, I, I, I, P],
                 "hp_msm_wsum": [P, P, P, I, I, P],
                 "hp_to_affine": [P, P, P, P, P, P, LL, P],
                 "hp_msm_chain": [P, P, P, I, I, I, P],

@@ -32,8 +32,28 @@ the two agree bit for bit in projective form, and a launch count. A
 wrapper takes the plain version only for a tensor on the CPU; for a CUDA
 tensor it launches the kernel or raises.
 
+What bounds the two kernels of the chain that do the work, and what their
+design does about it:
+  * K1 is bound by the latency of each lane's dependent mixed adds, and a
+    warp lasts as long as its busiest lane. It sorts each lane's nonzero
+    steps by digit and walks them with one accumulator in registers, so a
+    warp runs as many adds as its busiest lane has nonzero digits. The
+    lanes of a warp then stand at different steps, so it reads a
+    lane-major copy of the bases (lane_major; the key keeps one) and
+    stores its buckets in one pass at the end. Its output equals
+    msm_bucket_plain's, which adds every bucket's bases in step order all
+    the same.
+  * K2 is bound by the latency of the dependent complete adds of its
+    trees. It gives each (job, slot) merge_group(J, S, n_lanes) threads so
+    that the card holds about MERGE_TARGET_THREADS in all, skips every add
+    with the identity on one side (most buckets of the prover's W commits
+    are empty), reduces with warp shuffles, and where a slot spans several
+    blocks the last of them sums their partials in index order.
+    msm_merge_plain follows that order and those skips.
+
 Kernel layouts (int32 tensors holding u32 words):
   digits  (J, B, n_lanes)         bases   (B, 2, 8, n_lanes)
+  bases_lm (n_lanes, B, 2, 8): K1's lane-major copy (lane_major)
   buckets (J, S, 3, 8, n_lanes)   reduced (J, S, 3, 8)      sums (J, 3, 8)
 with S = 15 slots for K1 and the t-split (whose H sets sit on the lane
 axis, H * n_lanes lanes), 8 for the signed digits and 1 for the chain.
@@ -42,7 +62,7 @@ axis, H * n_lanes lanes), 8 for the signed digits and 1 for the chain.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -56,8 +76,13 @@ from .cuda_lib import check_input as _check_input, launch as _launch, \
 RADIX_BITS = 4
 NBUCKET = 15          # digit values 1..15; digit 0 is skipped
 NSIGNED = 8           # signed-digit magnitudes 1..8 (csrc/msm_designs.cuh)
-MERGE_THREADS = 256   # lanes summed per thread stride in K2 (csrc/msm.cuh)
 NW = 8                # u32 words per field element
+# Launch constants of K1 and K2, twins of csrc/msm.cuh's (a test holds
+# them equal).
+BUCKET_LANES = 128          # lanes (threads) per K1 block
+BUCKET_MAX_STEPS = 64       # the largest B K1 takes
+MERGE_THREADS = 128         # threads per K2 block
+MERGE_TARGET_THREADS = 132 * 512   # K2 threads per launch: 512 per H100 SM
 
 # ---------------------------------------------------------------------------
 # Plan, digits and base layout.
@@ -68,16 +93,19 @@ def n_windows4(max_bits: int) -> int:
     return (max_bits + RADIX_BITS - 1) // RADIX_BITS
 
 
-def plan(m: int, max_bits: int) -> Tuple[int, int, int, int]:
+def plan(m: int, max_bits: int,
+         b: Optional[int] = None) -> Tuple[int, int, int, int]:
     """(B, lanes_per_window, windows, n_lanes) for an m-point MSM.
 
-    B = 64 points per lane keeps the merge at a quarter of the bucket work
+    B points per lane: 64 keeps the merge at a quarter of the bucket work
     and gives the comm_T MSM 16k lanes (threads); small m shrinks B so each
-    window still has >= 16 lanes."""
+    window still has >= 16 lanes. A given b is taken as it is (the designs
+    tool times other B)."""
     w4 = n_windows4(max_bits)
-    b = 64
-    while b > 8 and m // b < 16:
-        b //= 2
+    if b is None:
+        b = 64
+        while b > 8 and m // b < 16:
+            b //= 2
     lpw = -(-m // b)
     return b, lpw, w4, w4 * lpw
 
@@ -107,12 +135,13 @@ def _lanes_tm(d: torch.Tensor, m: int, b: int, lpw: int,
     return d.reshape(J, b, w4 * lpw).to(torch.int32).contiguous()
 
 
-def bases_tm(xa: torch.Tensor, ya: torch.Tensor, m: int,
-             max_bits: int) -> torch.Tensor:
+def bases_tm(xa: torch.Tensor, ya: torch.Tensor, m: int, max_bits: int,
+             b: Optional[int] = None) -> torch.Tensor:
     """Affine Montgomery (W4', m, 32) digit arrays (W4' >= the plan's
-    windows) -> (B, 2, 8, n_lanes) kernel layout. Padding points are zero;
-    their digits are always 0, so no kernel ever reads them."""
-    b, lpw, w4, n_lanes = plan(m, max_bits)
+    windows) -> (B, 2, 8, n_lanes) kernel layout of plan(m, max_bits, b).
+    Padding points are zero; their digits are always 0, so no kernel ever
+    reads them."""
+    b, lpw, w4, n_lanes = plan(m, max_bits, b)
 
     def one(a):
         w = F.digits_to_words(a[:w4, :m])                  # (W4, m, 8)
@@ -123,6 +152,12 @@ def bases_tm(xa: torch.Tensor, ya: torch.Tensor, m: int,
             b, NW, n_lanes)
 
     return torch.stack([one(xa), one(ya)], dim=1).contiguous()
+
+
+def lane_major(bases: torch.Tensor) -> torch.Tensor:
+    """(B, 2, 8, n_lanes) bases -> K1's lane-major copy (n_lanes, B, 2, 8):
+    a lane's B points contiguous, 64 bytes each."""
+    return bases.permute(3, 0, 1, 2).contiguous()
 
 
 _CONSTS: Dict[str, ctypes.Array] = {}
@@ -194,20 +229,26 @@ def msm_bucket_plain(spec: C.CurveSpec, digits: torch.Tensor,
     return _buckets_plain(spec, digits, bases, NBUCKET, signed=False)
 
 
-def msm_bucket(spec: C.CurveSpec, digits: torch.Tensor,
-               bases: torch.Tensor) -> torch.Tensor:
+def msm_bucket(spec: C.CurveSpec, digits: torch.Tensor, bases: torch.Tensor,
+               bases_lm: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K1: (J, B, n_lanes) digits x (B, 2, 8, n_lanes) bases -> per-lane
-    buckets (J, 15, 3, 8, n_lanes)."""
+    buckets (J, 15, 3, 8, n_lanes); B <= BUCKET_MAX_STEPS. The kernel
+    reads bases_lm = lane_major(bases), made here if not given."""
     J, B, L = digits.shape
     _check_input("msm_bucket digits", digits, (J, B, L))
     _check_input("msm_bucket bases", bases, (B, 2, NW, L))
+    if B > BUCKET_MAX_STEPS:
+        raise ValueError(f"msm_bucket: B = {B} > {BUCKET_MAX_STEPS} steps")
     if not _on_cuda("msm_bucket", digits, bases):
         return msm_bucket_plain(spec, digits, bases)
+    lm = lane_major(bases) if bases_lm is None else bases_lm
+    _check_input("msm_bucket bases_lm", lm, (L, B, 2, NW))
+    _on_cuda("msm_bucket", digits, lm)
     out = torch.empty((J, NBUCKET, 3, NW, L), dtype=torch.int32,
                       device=digits.device)
     if J * L:
         _launch("msm_bucket", lib().hp_msm_bucket, _consts_arg(spec),
-                _ptr(digits), _ptr(bases), _ptr(out), J, B, L,
+                _ptr(digits), _ptr(lm), _ptr(out), J, B, L,
                 device=digits.device)
     return out
 
@@ -217,26 +258,81 @@ def msm_bucket(spec: C.CurveSpec, digits: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def merge_group(J: int, S: int, n_lanes: int) -> int:
+    """K2's threads per (job, slot), G, as csrc/msm.cuh computes it: the
+    largest power of two >= 32 with J * S * G <= MERGE_TARGET_THREADS,
+    capped at the lanes rounded up to a power of two and at
+    MERGE_THREADS^2. Above MERGE_THREADS a slot spans G / MERGE_THREADS
+    blocks."""
+    want = MERGE_TARGET_THREADS // (J * S) if J * S else 0
+    g = 32
+    while g * 2 <= want:
+        g *= 2
+    cap = 32
+    while cap < n_lanes:
+        cap *= 2
+    return min(g, cap, MERGE_THREADS * MERGE_THREADS)
+
+
+def _acc_add(spec: C.CurveSpec, acc, q):
+    """csrc acc_add as selects: q with Z = 0 leaves acc, acc with Z = 0
+    takes q, else the complete add (computed only where it is taken)."""
+    q_id = (q[2] == 0).all(-1)
+    acc_id = (acc[2] == 0).all(-1)
+    out = C.h_pt_select(q_id, acc, C.h_pt_select(acc_id, q, acc))
+    idx = (~q_id & ~acc_id).nonzero(as_tuple=True)
+    if idx[0].numel():
+        new = C.h_pt_add(spec, tuple(a[idx] for a in acc),
+                         tuple(b[idx] for b in q))
+        for o, n in zip(out, new):
+            o[idx] = n
+    return out
+
+
+def _halve(spec: C.CurveSpec, acc):
+    """Halving tree over axis -2 (a power of two): entry i < n/2 takes
+    entry i + n/2 until one is left. -> axis -2 dropped."""
+    n = acc[0].shape[-2]
+    while n > 1:
+        n //= 2
+        acc = _acc_add(spec, tuple(a[..., :n, :] for a in acc),
+                       tuple(a[..., n:2 * n, :] for a in acc))
+    return tuple(a[..., 0, :] for a in acc)
+
+
+def _group_sum(spec: C.CurveSpec, acc):
+    """K2's group tree over (..., n, 16) accumulators, n = 32 * nw: halving
+    within each warp of 32, then over the nw warp sums."""
+    lanes = tuple(a.reshape(*a.shape[:-2], -1, 32, a.shape[-1])
+                  for a in acc)
+    return _halve(spec, _halve(spec, lanes))
+
+
 def msm_merge_plain(spec: C.CurveSpec, buckets: torch.Tensor) -> torch.Tensor:
-    """Plain torch version of K2, in the kernel's order: accumulator t sums
-    lanes t, t + 256, ..., then a halving tree over the 256 accumulators."""
+    """Plain torch version of K2, in the kernel's order: thread g of the G
+    = merge_group(J, S, L) of a (job, slot) sums lanes g, g + G, ...; the
+    G sums take the group tree, or, for G > MERGE_THREADS, each block's
+    MERGE_THREADS do and the P block sums, padded with the identity to
+    MERGE_THREADS, take it once more. Every add skips the identity on
+    either side."""
     J, S, _, _, L = buckets.shape
+    G = merge_group(J, S, L)
     pts = tuple(F.words_to_h16(buckets[:, :, c].transpose(2, 3))
-                for c in range(3))                         # (J, 15, L, 16)
-    T = MERGE_THREADS
-    acc = C.h_identity(spec, (J, S, T), buckets.device)
-    for lo in range(0, L, T):
-        w = min(T, L - lo)
-        new = C.h_pt_add(spec, tuple(a[:, :, :w] for a in acc),
-                         tuple(p[:, :, lo:lo + w] for p in pts))
+                for c in range(3))                         # (J, S, L, 16)
+    acc = C.h_identity(spec, (J, S, G), buckets.device)
+    for lo in range(0, L, G):
+        w = min(G, L - lo)
+        new = _acc_add(spec, tuple(a[:, :, :w] for a in acc),
+                       tuple(p[:, :, lo:lo + w] for p in pts))
         acc = tuple(torch.cat([n, a[:, :, w:]], dim=2)
                     for n, a in zip(new, acc))
-    h = T // 2
-    while h >= 1:
-        acc = C.h_pt_add(spec, tuple(a[:, :, :h] for a in acc),
-                         tuple(a[:, :, h:2 * h] for a in acc))
-        h //= 2
-    return _proj_words(tuple(a[:, :, 0] for a in acc)).contiguous()
+    if G > MERGE_THREADS:
+        P = G // MERGE_THREADS
+        part = _group_sum(spec, tuple(
+            a.reshape(J, S, P, MERGE_THREADS, -1) for a in acc))
+        pad = C.h_identity(spec, (J, S, MERGE_THREADS - P), buckets.device)
+        acc = tuple(torch.cat([a, b], dim=2) for a, b in zip(part, pad))
+    return _proj_words(_group_sum(spec, acc)).contiguous()
 
 
 def msm_merge(spec: C.CurveSpec, buckets: torch.Tensor) -> torch.Tensor:
@@ -249,11 +345,17 @@ def msm_merge(spec: C.CurveSpec, buckets: torch.Tensor) -> torch.Tensor:
     _check_input("msm_merge buckets", buckets, (J, S, 3, NW, L))
     if not _on_cuda("msm_merge", buckets):
         return msm_merge_plain(spec, buckets)
-    out = torch.empty((J, S, 3, NW), dtype=torch.int32,
-                      device=buckets.device)
+    dev = buckets.device
+    out = torch.empty((J, S, 3, NW), dtype=torch.int32, device=dev)
     if J * S:
+        P = merge_group(J, S, L) // MERGE_THREADS
+        partials = torch.empty((J, S, P, 3, NW) if P > 1 else (1,),
+                               dtype=torch.int32, device=dev)
+        tickets = torch.zeros((J * S if P > 1 else 1,), dtype=torch.int32,
+                              device=dev)
         _launch("msm_merge", lib().hp_msm_merge, _consts_arg(spec),
-                _ptr(buckets), _ptr(out), J, S, L, device=buckets.device)
+                _ptr(buckets), _ptr(out), _ptr(partials), _ptr(tickets), J,
+                S, L, device=dev)
     return out
 
 
@@ -336,15 +438,17 @@ def to_affine(spec: C.CurveSpec, X: torch.Tensor, Y: torch.Tensor,
 
 
 def msm_many(spec: C.CurveSpec, scalars: torch.Tensor, bases: torch.Tensor,
-             m: int, max_bits: int) -> C.Point:
+             m: int, max_bits: int, b: Optional[int] = None,
+             bases_lm: Optional[torch.Tensor] = None) -> C.Point:
     """J MSMs over one shared base array through K1 -> K2 -> K3.
 
     scalars: (J, m, 32) canonical digits, each < 2^max_bits; bases: the
-    (B, 2, 8, n_lanes) layout of bases_tm(m, max_bits). Returns projective
+    (B, 2, 8, n_lanes) layout of bases_tm(m, max_bits, b), and bases_lm
+    its lane_major copy if the caller keeps one. Returns projective
     Montgomery (J, 32) x3."""
-    b, lpw, w4, _ = plan(m, max_bits)
+    b, lpw, w4, _ = plan(m, max_bits, b)
     d = digits_tm(scalars, m, b, lpw, w4)
-    s = msm_wsum(spec, msm_merge(spec, msm_bucket(spec, d, bases)))
+    s = msm_wsum(spec, msm_merge(spec, msm_bucket(spec, d, bases, bases_lm)))
     dig = F.words_to_digits(s)                             # (J, 3, 32)
     return (dig[:, 0], dig[:, 1], dig[:, 2])
 

@@ -323,8 +323,8 @@ def part_msm(ck: CommitmentKey, rng: np.random.Generator, rate, reps: int,
     rinv = pow(f.r_mod_p, -1, f.p)
     for tag, (m, bits) in shapes.items():
         sc = random_scalars(rng, 1, m, bits, dev)
-        bases = ck.bases(m, bits)
-        whole = lambda: MP.msm_many(ck.spec, sc, bases, m, bits)
+        bases, lm = ck.bases(m, bits), ck.bases_lm(m, bits)
+        whole = lambda: MP.msm_many(ck.spec, sc, bases, m, bits, bases_lm=lm)
         got = ck.affine(whole())[0]
         t_ms = ms(whole, max(1, reps // 4))
         gens = [(x * rinv % f.p, y * rinv % f.p) for x, y in

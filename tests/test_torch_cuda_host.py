@@ -132,7 +132,7 @@ def test_msm_kernel_bodies_vs_plain(hc, m, bits):
 
     bk = MP.msm_bucket_plain(spec, d, bases)
     dn = np.ascontiguousarray(d.numpy())
-    bn = np.ascontiguousarray(bases.numpy().view(np.uint32))
+    bn = np.ascontiguousarray(MP.lane_major(bases).numpy().view(np.uint32))
     bk_h = np.zeros(tuple(bk.shape), np.uint32)
     hc.hc_msm_bucket(_p(cw), _p(dn), _p(bn), _p(bk_h), 2, b, n_lanes)
     assert np.array_equal(bk_h.view(np.int32), bk.numpy())
@@ -146,6 +146,85 @@ def test_msm_kernel_bodies_vs_plain(hc, m, bits):
     s_h = np.zeros(tuple(s.shape), np.uint32)
     hc.hc_msm_wsum(_p(cw), _p(red_h), _p(s_h), 2, MP.NBUCKET)
     assert np.array_equal(s_h.view(np.int32), s.numpy())
+
+
+def test_msm_constants_match_the_python_twins(hc):
+    """csrc/msm.cuh's launch constants and merge_group == msm_pallas's."""
+    got = np.zeros(5, np.int32)
+    hc.hc_msm_constants(_p(got))
+    assert got.tolist() == [MP.NBUCKET, MP.BUCKET_LANES, MP.BUCKET_MAX_STEPS,
+                            MP.MERGE_THREADS, MP.MERGE_TARGET_THREADS]
+    for J in (1, 2, 16, 35, 36, 256, 4096):
+        for S in (1, 8, 15):
+            for L in (0, 1, 31, 33, 255, 256, 257, 2490, 16192, 64704,
+                      1 << 20):
+                G = hc.hc_merge_group(J, S, L)
+                assert G == MP.merge_group(J, S, L)
+                assert G >= 32 and G & (G - 1) == 0
+    assert MP.merge_group(1, 15, 16192) == 4096    # comm_T: 32 blocks a slot
+    assert MP.merge_group(16, 15, 2490) == 256     # W J=16: 2 blocks a slot
+    assert MP.merge_group(256, 15, 2490) == 32     # W J=256: a warp a slot
+
+
+def _random_points(rng, f, shape):
+    """Random canonical field elements, below 2^254 < p, as (..., 3, 8)
+    uint32 words: the formulas are total, so every stage must agree on any
+    input."""
+    assert f.p > 1 << 254
+    w = rng.integers(0, 1 << 32, size=(*shape, 3, 8), dtype=np.uint32)
+    w[..., 7] &= 0x3FFFFFFF
+    return w
+
+
+@pytest.mark.parametrize("J,S,L", [(71, 15, 40), (50, 15, 100),
+                                   (40, 8, 100), (2, 15, 200), (1, 8, 700)])
+def test_merge_body_vs_plain_with_empty_buckets(hc, J, S, L):
+    """K2's groups, warp trees and last-block finish under g++ == the
+    plain version, bit for bit, at S = 15 and 8: G = 32, 64 and 128
+    threads a slot (4, 2 and 1 slots a block) and G = 256 and 1,024 (2
+    and 8 blocks a slot); lanes no multiple of G; about half the buckets
+    empty (Z = 0) and one job all empty."""
+    spec = C.PALLAS
+    rng = np.random.default_rng(J * S + L)
+    pts = _random_points(rng, spec.base, (J, S, L))         # (J, S, L, 3, 8)
+    empty = rng.random((J, S, L)) < 0.5
+    empty[-1] = True
+    one = _words(torch.from_numpy(spec.base.one_mont_limbs))
+    pts[empty] = 0
+    pts[empty, 1] = one
+    bk = np.ascontiguousarray(pts.transpose(0, 1, 3, 4, 2))  # (J, S, 3, 8, L)
+    G = MP.merge_group(J, S, L)
+    assert L % G and G & (G - 1) == 0
+    want = MP.msm_merge_plain(spec, torch.from_numpy(bk.view(np.int32)))
+    got = _host(hc, "hc_msm_merge", want.shape, _p(MP.consts_words(spec)),
+                _p(bk), (J, S, L))
+    assert np.array_equal(got, want.numpy())
+    assert not got[-1, :, 2].any()                  # the empty job: identity
+
+
+def test_bucket_walk_vs_plain_on_sparse_digits(hc):
+    """K1's sorted walk over lane-major bases under g++ == msm_bucket_plain
+    over the time-major ones, bit for bit, at the kernel's largest B: 95 %
+    zero digits, a lane with every step nonzero, a lane of one repeated
+    digit and a job with no nonzero digit."""
+    spec = C.PALLAS
+    rng = np.random.default_rng(41)
+    J, B, L = 3, MP.BUCKET_MAX_STEPS, 37
+    d = rng.integers(1, 16, size=(J, B, L)) * (rng.random((J, B, L)) < 0.05)
+    d[0, :, 0] = rng.integers(1, 16, size=B)
+    d[0, :, 1] = 7
+    d[2] = 0
+    d = np.ascontiguousarray(d.astype(np.int32))
+    bases = _random_points(rng, spec.base, (B, L))[:, :, :2]  # (B, L, 2, 8)
+    tm = torch.from_numpy(np.ascontiguousarray(
+        bases.transpose(0, 2, 3, 1)).view(np.int32))          # (B, 2, 8, L)
+    lm = MP.lane_major(tm)
+    assert lm.shape == (L, B, 2, 8) and torch.equal(lm[5, 9], tm[9, :, :, 5])
+    want = MP.msm_bucket_plain(spec, torch.from_numpy(d), tm)
+    got = _host(hc, "hc_msm_bucket", want.shape, _p(MP.consts_words(spec)),
+                _p(d), _p(lm.numpy()), (J, B, L))
+    assert np.array_equal(got, want.numpy())
+    assert not got[2, :, 2].any()
 
 
 def _host(hc, name, shape, *args):

@@ -54,6 +54,24 @@ def test_msm_many_vs_host_msm(m, bits):
     assert got == [RC.host_msm(RC.PALLAS, k, gens) for k in ks]
 
 
+@pytest.mark.parametrize("bits", [40, 256])
+@pytest.mark.parametrize("b", [64, 32, 16])
+def test_msm_many_vs_host_msm_at_each_plan_b(b, bits):
+    """msm_many over the bases laid out for another B (as the designs tool
+    times them) == the host MSM as affine points."""
+    m = 40
+    gens = _gens(m, seed=b)
+    xa, ya = RMP.scaled_affine_host(RC.PALLAS, gens, RM.n_windows4(bits))
+    bases = MP.bases_tm(*bridge.scaled_bases(xa, ya), m, bits, b)
+    assert bases.shape == (b, 2, 8, MP.n_windows4(bits) * -(-m // b))
+    ks = _scalars(2, m, bits, seed=b + bits)
+    sc = torch.stack([torch.from_numpy(SPEC.scalar.batch_to_limbs(k))
+                      for k in ks])
+    got = C.pt_to_affine_host(SPEC, MP.msm_many(SPEC, sc, bases, m, bits, b))
+    assert got[1] is None
+    assert got == [RC.host_msm(RC.PALLAS, k, gens) for k in ks]
+
+
 def test_plan_and_layouts():
     for m, bits in [(1, 40), (300, 256), (15922, 40), (16162, 256)]:
         b, lpw, w4, n_lanes = MP.plan(m, bits)

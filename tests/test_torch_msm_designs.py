@@ -158,7 +158,8 @@ def test_msm_chain_equals_host_lane_sums(m, bits):
 
 def test_designs_tool_checks_every_design():
     """tools/msm_designs.py on the CPU at a tiny shape: every design's MSM
-    agrees with msm_many (the chain with its plain version), one report
+    agrees with msm_many (the chain with its plain version), a stages line,
+    a digit statistics line, a line of msm_many at each B and one report
     line per design, and the host per-fold costs are timed."""
     rng = np.random.default_rng(5)
     key = CommitmentKey.create(SPEC, b"", 64)
@@ -166,6 +167,56 @@ def test_designs_tool_checks_every_design():
                               40), 1)
     assert list(res["designs"]) == list(D.DESIGNS)
     assert all(d["ok"] for d in res["designs"].values()), res["designs"]
-    assert len(D.report("cpu", res)) == 1 + len(D.DESIGNS)
+    assert len(D.report("cpu", res)) == 3 + len(D.DESIGNS)
     assert set(D.host_fold_costs(rng, 2)) == {"host_transcript_fold_ms",
                                               "host_fold_instance_ms"}
+
+
+def test_digit_stats_equal_a_direct_count():
+    """digit_stats on a small seeded sparse batch == counts made lane by
+    lane and warp by warp."""
+    rng = np.random.default_rng(17)
+    J, m, bits = 3, 300, 40
+    raw = rng.integers(0, 256, size=(J, m, 32), dtype=np.int64)
+    raw[..., (bits + 7) // 8:] = 0
+    raw[rng.random((J, m, 32)) < 0.9] = 0
+    raw[1] = 0
+    sc = torch.from_numpy(raw.astype(np.int32))
+    b, lpw, w4, L = MP.plan(m, bits)
+    d = MP.digits_tm(sc, m, b, lpw, w4)
+    st = D.digit_stats(sc, d, bits)
+    dn = d.numpy()
+    nib = [[[(int(raw[j, i, w // 2]) >> (4 * (w % 2))) & 15 for i in range(m)]
+            for w in range(w4)] for j in range(J)]
+    for w in range(w4):
+        want = sum(nib[j][w][i] != 0 for j in range(J) for i in range(m))
+        assert st["nonzero_per_window"][w] == pytest.approx(want / (J * m))
+    touched = sum(len(set(dn[j, :, lane].tolist()) - {0})
+                  for j in range(J) for lane in range(L))
+    assert st["touched"] == pytest.approx(touched / (J * L * MP.NBUCKET))
+    flat = [(j, lane) for j in range(J) for lane in range(L)]
+    warps = [flat[i:i + 32] for i in range(0, len(flat), 32)]
+    lockstep = [sum(any(dn[j, t, lane] for j, lane in wp) for t in range(b))
+                for wp in warps]
+    assert st["adds_lockstep"] == pytest.approx(np.mean(lockstep))
+    walk = [max(int((dn[j, :, lane] != 0).sum())
+                for lane in range(lo, min(lo + 32, L)))
+            for j in range(J) for lo in range(0, L, 32)]
+    assert st["adds_walk"] == pytest.approx(np.mean(walk))
+    assert st["adds_walk"] <= st["adds_lockstep"]
+
+
+def test_designs_tool_times_each_plan_b_at_256_bits():
+    """At 256 bits too the tool runs msm_many at every B of PLAN_BS and
+    holds each against plan's; its report has the digit and B lines."""
+    rng = np.random.default_rng(6)
+    key = CommitmentKey.create(SPEC, b"", 64)
+    res = D.measure(D.prepare(key, D.random_scalars(rng, 1, 20, 256, "cpu"),
+                              256), 1)
+    assert sorted(res["plan_b"]) == sorted(D.PLAN_BS)
+    assert D.all_ok({**{t: {"designs": {}, "plan_b": {}} for t in D.SHAPES},
+                     "comm_T J=1": res})
+    assert 0 < res["digit_stats"]["touched"] <= 1
+    lines = D.report("cpu", res)
+    assert len(lines) == 3 + len(D.DESIGNS)
+    assert "sorted walk" in lines[1] and "B=16" in lines[2]
