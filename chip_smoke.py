@@ -12,8 +12,11 @@ exit and no result line:
      inputs (exact integer equality; the merge with several blocks per slot
      over lanes no multiple of them, a sparse batch whose buckets are
      mostly empty, and a job of zero scalars whose buckets and slots must
-     all be the identity), then kernel and plain times at the main path's
-     shapes;
+     all be the identity; to_affine over 3 1/4 blocks with zero Z's at a
+     point, a thread, a block; msm_wsum at S = 1..32 and J = 0..256 with
+     identity slots), then kernel and plain times at the main path's
+     shapes, msm_wsum's critical path in dependent adds and its time an
+     add, and to_affine's time on one block (one Fermat chain's latency);
   4. the main path at full circuit size: ChunkProver(device="cuda") proves
      one chunk of a 64 MiB file (depth 16), verifies it against the BLAKE3
      oracle's root, proves two chunks in lockstep (prove_many), verifies
@@ -153,6 +156,16 @@ def merge_bound(bk: torch.Tensor, red: torch.Tensor, rate: float):
     return ms, by, bound(MONT_ADD * trees, nbytes(bk, red), rate)[0]
 
 
+def wsum_path(ms: float, S: int) -> str:
+    """msm_wsum's critical path at S slots and its time per dependent
+    complete add."""
+    from hotproofs_tpu_torch.ops import msm_pallas as MP
+    d = MP.wsum_depth(S)
+    return (f"msm_wsum {ms:.4f} ms over a critical path of {d} dependent "
+            f"complete adds (the serial suffix sum: {2 * S}), "
+            f"{ms / max(d, 1):.4f} ms an add")
+
+
 def max_err(a: torch.Tensor, b: torch.Tensor) -> int:
     require(a.shape == b.shape, f"shapes {a.shape} != {b.shape}")
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item()) \
@@ -272,6 +285,8 @@ def designs_phase(prover, data, dev, rng, note, stats, bounds,
     design_counts = dict(MP.launches)
     require(D.all_ok(res), "a design's MSM, or msm_many's at another B, "
             "disagrees with msm_many (or msm_chain with its plain version)")
+    say("6 times", "W J=256: " + wsum_path(res["W J=256"]["msm_wsum"],
+                                           MP.NBUCKET))
     say("6 launches", ", ".join(f"{k} {design_counts[k]}" for k in DESIGNS))
     for k in DESIGNS:
         require(design_counts[k] > 0, f"{k} was not launched on the "
@@ -396,6 +411,7 @@ def main() -> int:
     from hotproofs_tpu_torch.ops import field as F
     from hotproofs_tpu_torch.ops import msm_pallas as MP
     from hotproofs_tpu_torch.tools import msm_designs as D
+    from hotproofs_tpu_torch.tools import wsum_affine as WA
     from hotproofs_tpu_torch.utils.config import CONFIG
 
     dev = torch.device("cuda")
@@ -452,17 +468,44 @@ def main() -> int:
         stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], e)
         require(e == 0, f"{name}: kernel != plain (max |err| {e})")
 
-    # to_affine on 4,096 projective points (64 generators x 64 windows).
-    pts = tuple(c[:64] for c in tmp_key.points)
+    # to_affine on 13,312 projective points (208 generators x 64 windows,
+    # 3 1/4 of the kernel's blocks). A Z of 0 gives (0, 0), at one point,
+    # at every point of a thread of block 0, at every point of block 1 and
+    # of a thread of the last block, which ends mid-thread.
+    pts = tuple(c[:208] for c in tmp_key.points)
     X, Y, Z = (F.digits_to_words(c.reshape(-1, 32))
                for c in MP.scale_points16(spec, pts, 64))
-    Z[5] = 0                                  # 0 -> (0, 0) must agree too
+    T, blk = MP.AFFINE_THREADS, MP.AFFINE_BLOCK
+    zero = [5] + [k * T + 7 for k in range(MP.AFFINE_PER_THREAD)] + \
+        list(range(blk, 2 * blk)) + [3 * blk + k * T + 3 for k in range(4)]
+    Z[zero] = 0
     xk, yk = MP.to_affine_words(spec, X, Y, Z)
     xp, yp = MP.to_affine_words_plain(spec, X, Y, Z)
     torch.cuda.synchronize()
     note("to_affine", xk, xp)
     note("to_affine", yk, yp)
-    say("3 kernels", f"to_affine == plain on {X.shape[0]} points")
+    require(not bool(xk[zero].any()) and not bool(yk[zero].any()),
+            "to_affine: a zero Z did not give (0, 0)")
+    say("3 kernels", f"to_affine == plain on {X.shape[0]} points "
+        f"({X.shape[0] / blk:.2f} blocks of {blk}; {len(zero)} zero Z: one "
+        "point, a thread's 16, block 1, a thread of the last block)")
+
+    # msm_wsum at every lane count G: seeded random slots, a tenth of them
+    # the identity, job 0 all identity.
+    for S in (1, 2, 3, 8, 15, 16, 17, 32):
+        for J in (0, 1, 3, 256):
+            red = WA.random_reduced(rng, J, S, dev)
+            if J:
+                red[0] = 0
+                red[0, :, 1] = F.digits_to_words(torch.from_numpy(
+                    spec.base.one_mont_limbs).to(dev))
+            got = MP.msm_wsum(spec, red)
+            note("msm_wsum", got, MP.msm_wsum_plain(spec, red))
+            require(J == 0 or not bool(got[0, 2].any()),
+                    "msm_wsum: an all-identity job did not sum to it")
+    say("3 kernels", "msm_wsum == plain at S = 1, 2, 3, 8, 15, 16, 17, 32 "
+        "(G = 1 to 32 lanes a job) and J = 0, 1, 3, 256; all-identity jobs "
+        "sum to the identity")
 
     def chain_check(scalars, bases, m, bits, tag):
         """bucket, merge and wsum == plain on scalars; a job of zero
@@ -528,8 +571,12 @@ def main() -> int:
     inv_monts = 256 + bin(spec.base.p - 2).count("1") + 2
     bounds["to_affine"] = bound(n_pts * MONT_AFFINE + inv_monts,
                                 nbytes(*P3, xk, yk), rate)
-    say("3 times", f"to_affine on {P3[0].shape[0]} points: {ms:.3f} ms "
-        f"(plain {plain:.1f} ms)")
+    one = tuple(c[:MP.AFFINE_BLOCK] for c in P3)
+    floor = cuda_ms(lambda: MP.to_affine_words(spec, *one), 5)
+    say("3 times", f"to_affine on {n_pts} points: {ms:.3f} ms "
+        f"(plain {plain:.1f} ms); on one block's {MP.AFFINE_BLOCK} points, "
+        f"the latency of one Fermat chain: {floor:.3f} ms "
+        f"({ms / floor:.2f}x of it)")
     tmp_key._scaled[(16162, 64)] = tuple(
         F.words_to_digits(a).reshape(64, 16162, 32) for a in (xk, yk))
     del P3, xp, yp
@@ -574,6 +621,8 @@ def main() -> int:
         say("3 times", f"{tag}: " + ", ".join(
             f"{k} {v[0]:.3f} ms (plain {v[1]:.1f} ms)"
             for k, v in times.items()) + f"; whole msm_many {chain:.3f} ms")
+        say("3 times", f"{tag}: " + wsum_path(times["msm_wsum"][0],
+                                               bk.shape[1]))
     del tmp_key
     torch.cuda.empty_cache()
     # Bases cached on disk by an earlier run would let the main path skip

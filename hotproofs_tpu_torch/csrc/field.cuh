@@ -173,15 +173,42 @@ HP_HD void fe_sub(const Consts& c, const u32* a, const u32* b, u32* out) {
   fe_copy(out, t);
 }
 
-// out = a^(p-2) in Montgomery form (Fermat inversion; 0 -> 0).
+HP_HD int fe_bit(const u32* e, int i) { return (e[i >> 5] >> (i & 31)) & 1; }
+
+// out = a^(p-2) in Montgomery form (Fermat inversion; 0 -> 0), by a
+// sliding window of up to 4 bits over the exponent: the odd powers a, a^3,
+// ..., a^15 first (8 products), then a squaring a bit below the top
+// window and a product a window. For the Pasta fields' p - 2 that is 289
+// products in a chain (254 squarings, 27 window products, the table's 8),
+// where a square-and-multiply over all 256 bits takes 333. The result is the
+// field's unique inverse, the same words whatever the chain.
 HP_HD void fe_inv(const Consts& c, const u32* a, u32* out) {
-  u32 acc[NW];
+  u32 tbl[8][NW], a2[NW], acc[NW];
+  fe_copy(tbl[0], a);
+  mont_mul(c, a, a, a2);
+  for (int k = 1; k < 8; ++k) mont_mul(c, tbl[k - 1], a2, tbl[k]);
   fe_copy(acc, c.one);
-  for (int w = NW - 1; w >= 0; --w) {
-    for (int bit = 31; bit >= 0; --bit) {
-      mont_mul(c, acc, acc, acc);
-      if ((c.pm2[w] >> bit) & 1u) mont_mul(c, acc, a, acc);
+  bool started = false;  // acc is 1 until the top window: no squaring
+  int i = NW * 32 - 1;
+  while (i >= 0) {
+    if (!fe_bit(c.pm2, i)) {
+      if (started) mont_mul(c, acc, acc, acc);
+      --i;
+      continue;
     }
+    int l = i - 3 < 0 ? 0 : i - 3;  // the window [l, i] ends in a set bit
+    while (!fe_bit(c.pm2, l)) ++l;
+    int w = 0;
+    for (int k = i; k >= l; --k) {
+      w = 2 * w + fe_bit(c.pm2, k);
+      if (started) mont_mul(c, acc, acc, acc);
+    }
+    if (started)
+      mont_mul(c, acc, tbl[w >> 1], acc);
+    else
+      fe_copy(acc, tbl[w >> 1]);
+    started = true;
+    i = l - 1;
   }
   fe_copy(out, acc);
 }

@@ -57,16 +57,21 @@ void hc_point_op(const u32* consts, const u32* p, const u32* q, u32* out,
 }
 
 // msm.cuh's launch constants, in the order NBUCKET, BUCKET_LANES,
-// BUCKET_MAX_STEPS, MERGE_THREADS, MERGE_TARGET_THREADS; and merge_group.
+// BUCKET_MAX_STEPS, MERGE_THREADS, MERGE_TARGET_THREADS, WSUM_THREADS,
+// WSUM_MAX_SLOTS, AFFINE_THREADS, AFFINE_PER_THREAD; merge_group and
+// wsum_group.
 void hc_msm_constants(int* out) {
-  const int v[] = {NBUCKET, BUCKET_LANES, BUCKET_MAX_STEPS, MERGE_THREADS,
-                   MERGE_TARGET_THREADS};
-  for (int i = 0; i < 5; ++i) out[i] = v[i];
+  const int v[] = {NBUCKET,        BUCKET_LANES,   BUCKET_MAX_STEPS,
+                   MERGE_THREADS,  MERGE_TARGET_THREADS, WSUM_THREADS,
+                   WSUM_MAX_SLOTS, AFFINE_THREADS, AFFINE_PER_THREAD};
+  for (int i = 0; i < 9; ++i) out[i] = v[i];
 }
 
 int hc_merge_group(int J, int S, int n_lanes) {
   return merge_group(J, S, n_lanes);
 }
+
+int hc_wsum_group(int S) { return wsum_group(S); }
 
 // bucket_walk for every (job, lane) over lane-major bases; each thread's
 // byte columns are its own, so one set of stride-1 columns serves them in
@@ -126,10 +131,30 @@ void hc_msm_merge(const u32* consts, const u32* buckets, u32* reduced, int J,
   }
 }
 
+// k_msm_wsum warp by warp: the G lanes of each of the warp's 32 / G jobs
+// load their slots (wsum_lane), then each shuffle level of the suffix scan
+// (lane v < G - off takes lane v + off, all reading the level's inputs)
+// and of the halving tree (lane v < off takes lane v + off).
 void hc_msm_wsum(const u32* consts, const u32* reduced, u32* out, int J,
                  int S) {
   Consts c = load_consts(consts);
-  for (int j = 0; j < J; ++j) wsum_job(c, reduced, out, S, j);
+  const int G = wsum_group(S);
+  std::vector<Proj> lane(32), prev(32);
+  for (long long w0 = 0; w0 < J; w0 += 32 / G) {
+    for (int l = 0; l < 32; ++l)
+      wsum_lane(c, reduced, S, J, w0 + l / G, l % G, lane[l]);
+    for (int off = 1; off < G; off <<= 1) {
+      prev = lane;
+      for (int l = 0; l < 32; ++l)
+        if (l % G + off < G) acc_add(c, lane[l], prev[l + off]);
+    }
+    for (int off = G / 2; off > 0; off >>= 1)
+      for (int l = 0; l < 32; ++l)
+        if (l % G < off) acc_add(c, lane[l], lane[l + off]);
+    for (int l = 0; l < 32; l += G)
+      if (w0 + l / G < J)
+        store_proj(out + (size_t)(w0 + l / G) * 3 * NW, 1, lane[l]);
+  }
 }
 
 void hc_msm_chain(const u32* consts, const u32* bases, u32* out, int J, int B,
@@ -162,10 +187,37 @@ void hc_msm_bucket_signed(const u32* consts, const int* digits,
       signed_lane(c, digits, bases, buckets, B, n_lanes, j, l);
 }
 
+// k_to_affine block by block: every thread's phase 1, the prefix and
+// suffix product scans level by level (each level reading the one before),
+// thread 0's inversion of the block's product, every thread's phase 3.
 void hc_to_affine(const u32* consts, const u32* X, const u32* Y, const u32* Z,
                   u32* x, u32* y, long long n) {
   Consts c = load_consts(consts);
-  for (long long i = 0; i < n; ++i) affine_point(c, X, Y, Z, x, y, (size_t)i);
+  const int T = AFFINE_THREADS;
+  std::vector<u32> pre(T * NW), suf(T * NW), p0, s0;
+  for (long long b = 0; b * AFFINE_BLOCK < n; ++b) {
+    for (int t = 0; t < T; ++t) {
+      affine_prefix(c, Z, x, n, b, t, &pre[t * NW]);
+      fe_copy(&suf[t * NW], &pre[t * NW]);
+    }
+    for (int off = 1; off < T; off <<= 1) {
+      p0 = pre;
+      s0 = suf;
+      for (int t = 0; t < T; ++t) {
+        if (t >= off) mont_mul(c, &p0[(t - off) * NW], &p0[t * NW],
+                               &pre[t * NW]);
+        if (t + off < T) mont_mul(c, &s0[t * NW], &s0[(t + off) * NW],
+                                  &suf[t * NW]);
+      }
+    }
+    u32 inv[NW], others[NW], inv_q[NW];
+    fe_inv(c, &pre[(T - 1) * NW], inv);
+    for (int t = 0; t < T; ++t) {
+      affine_others(c, pre.data(), suf.data(), t, others);
+      mont_mul(c, inv, others, inv_q);
+      affine_back(c, X, Y, Z, x, y, n, b, t, inv_q);
+    }
+  }
 }
 
 // The field-multiply kernels' bodies (mont.cuh), one call per launch index.

@@ -39,13 +39,35 @@
 //   in index order, so the result does not depend on which block ends
 //   last. Bound by the latency of the dependent adds along the tree.
 // K3 msm_wsum replaces _wsum_kernel (msm_pallas.py:358).
-//   One thread per job: 2S complete adds of the running suffix sum. Latency
-//   bound and tiny; it exists so the chain never leaves the device.
+//   sum_{v=1..S} v * B_v per job. Work: 2S complete adds, nothing for the
+//   card; what bounds it is the latency of the adds that depend on each
+//   other (about 29 us each on an H100 with one warp a scheduler). The
+//   reference's running suffix sum, run by one thread a job, chains all
+//   2S = 30 of them. Here a job's slots sit on G = wsum_group(S) lanes of a
+//   warp (G = 16 and 2 jobs a warp at S = 15): lane v holds B_{v+1}, an
+//   inclusive suffix scan over log2 G shuffle levels gives T_v = sum_{u>=v}
+//   B_u, and a halving tree over log2 G more sums the T_v, which is
+//   sum_v v * B_v. The critical path is 2 log2 G dependent adds (8 at
+//   S = 15, 6 at S = 8). Every add with the identity on one side is
+//   skipped (the lanes v >= S, empty slots).
 // K4 to_affine replaces _inv_kernel / batch_inv_mont_lm (msm_pallas.py:66,
 //   88) and _mont_mul_kernel / mont_mul_lm (pallas_field.py:267, 296) as
-//   scaled_affine_device composes them (msm_pallas.py:156-170): one thread
-//   per point computes z^(p-2) (256 squarings + ~128 multiplies) and then
-//   x/z, y/z. Bound by multiply throughput; it runs once per key.
+//   scaled_affine_device composes them (msm_pallas.py:156-170). The TPU
+//   design raises every point's Z to p - 2 (a Fermat inversion, ~333
+//   products a point): on the TPU that was one-time key preparation at
+//   128 lanes a step; on this card it leaves the kernel bound by multiply
+//   throughput at some 67 times the products it needs. So it was not
+//   carried over. Here Montgomery's batch trick inverts a block's 4,096
+//   points with one Fermat chain: each thread forms the running products
+//   of its 16 points' Z (phase 1, written into x as scratch: no other
+//   buffer), the block combines the 256 thread products by a prefix and a
+//   suffix product scan in shared memory (8 levels), thread 0 inverts the
+//   block's product (fe_inv, a sliding-window chain of 289 products), and
+//   each thread walks its points back (phase 3): 5 products a point in
+//   all. What bounds it is then the latency of that one Fermat chain, run
+//   by every block at once (253 blocks at 1,034,368 points, all resident
+//   at two an SM). A Z of 0 counts as 1 and gives (0, 0), as the
+//   reference's is_zero does. One launch, one count.
 #include <cuda_runtime.h>
 
 #include "msm.cuh"
@@ -157,18 +179,65 @@ __global__ void __launch_bounds__(MERGE_THREADS, 4)
   if (threadIdx.x == 0) store_proj(reduced + (size_t)js * 3 * NW, 1, acc);
 }
 
-__global__ void k_msm_wsum(Consts c, const u32* __restrict__ reduced,
-                           u32* __restrict__ out, int S, int J) {
-  int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j < J) wsum_job(c, reduced, out, S, j);
+// Thread gid is lane v = gid % G of job gid / G (G divides 32, so a warp
+// holds 32 / G whole jobs). The host replay is hc_msm_wsum.
+__global__ void __launch_bounds__(WSUM_THREADS)
+    k_msm_wsum(Consts c, const u32* __restrict__ reduced,
+               u32* __restrict__ out, int S, int J, int G) {
+  const long long gid = (long long)blockIdx.x * WSUM_THREADS + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  if ((gid - lane) / G >= J) return;  // the whole warp: no job
+  const long long j = gid / G;
+  const int v = (int)(gid % G);
+  Proj acc;
+  wsum_lane(c, reduced, S, J, j, v, acc);
+#pragma unroll 1
+  for (int off = 1; off < G; off <<= 1) {  // T_v = B_v + ... + B_S
+    Proj o;
+    shfl_down_proj(acc, off, o);
+    if (v + off < G) acc_add(c, acc, o);
+  }
+#pragma unroll 1
+  for (int off = G / 2; off > 0; off >>= 1) {  // sum of the T_v
+    Proj o;
+    shfl_down_proj(acc, off, o);
+    if (v < off) acc_add(c, acc, o);
+  }
+  if (v == 0 && j < J) store_proj(out + (size_t)j * 3 * NW, 1, acc);
 }
 
-__global__ void k_to_affine(Consts c, const u32* __restrict__ X,
-                            const u32* __restrict__ Y,
-                            const u32* __restrict__ Z, u32* __restrict__ x,
-                            u32* __restrict__ y, long long n) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) affine_point(c, X, Y, Z, x, y, (size_t)i);
+// Block b holds points [b AFFINE_BLOCK, (b + 1) AFFINE_BLOCK) (msm.cuh:
+// affine_prefix). The host replay is hc_to_affine.
+__global__ void __launch_bounds__(AFFINE_THREADS, 2)
+    k_to_affine(Consts c, const u32* __restrict__ X,
+                const u32* __restrict__ Y, const u32* __restrict__ Z, u32* x,
+                u32* __restrict__ y, long long n) {
+  __shared__ u32 pre[AFFINE_THREADS * NW], suf[AFFINE_THREADS * NW];
+  __shared__ u32 inv[NW];
+  const int t = threadIdx.x;
+  const long long b = blockIdx.x;
+  u32 q[NW];
+  affine_prefix(c, Z, x, n, b, t, q);
+  fe_copy(pre + t * NW, q);
+  fe_copy(suf + t * NW, q);
+  __syncthreads();
+#pragma unroll 1
+  for (int off = 1; off < AFFINE_THREADS; off <<= 1) {
+    u32 p[NW], s[NW];
+    const bool lo = t >= off, hi = t + off < AFFINE_THREADS;
+    if (lo) mont_mul(c, pre + (t - off) * NW, pre + t * NW, p);
+    if (hi) mont_mul(c, suf + t * NW, suf + (t + off) * NW, s);
+    __syncthreads();
+    if (lo) fe_copy(pre + t * NW, p);
+    if (hi) fe_copy(suf + t * NW, s);
+    __syncthreads();
+  }
+  u32 others[NW];
+  affine_others(c, pre, suf, t, others);
+  if (t == 0) fe_inv(c, pre + (AFFINE_THREADS - 1) * NW, inv);
+  __syncthreads();
+  mont_mul(c, inv, others, q);  // 1 / q
+  affine_back(c, X, Y, Z, x, y, n, b, t, q);
 }
 
 extern "C" {
@@ -198,19 +267,23 @@ int hp_msm_merge(const u32* consts, const u32* buckets, u32* reduced,
   return (int)cudaGetLastError();
 }
 
+// S <= WSUM_MAX_SLOTS.
 int hp_msm_wsum(const u32* consts, const u32* reduced, u32* out, int J,
                 int S, void* stream) {
-  const int threads = 32;
-  k_msm_wsum<<<blocks_for(J, threads), threads, 0, (cudaStream_t)stream>>>(
-      load_consts(consts), reduced, out, S, J);
+  if (S > WSUM_MAX_SLOTS) return (int)cudaErrorInvalidValue;
+  const int G = wsum_group(S);
+  k_msm_wsum<<<blocks_for((long long)J * G, WSUM_THREADS), WSUM_THREADS, 0,
+               (cudaStream_t)stream>>>(load_consts(consts), reduced, out, S,
+                                       J, G);
   return (int)cudaGetLastError();
 }
 
+// x is written twice: phase 1 keeps the running products there.
 int hp_to_affine(const u32* consts, const u32* X, const u32* Y, const u32* Z,
                  u32* x, u32* y, long long n, void* stream) {
-  const int threads = 128;
-  k_to_affine<<<blocks_for(n, threads), threads, 0, (cudaStream_t)stream>>>(
-      load_consts(consts), X, Y, Z, x, y, n);
+  k_to_affine<<<blocks_for(n, AFFINE_BLOCK), AFFINE_THREADS, 0,
+                (cudaStream_t)stream>>>(load_consts(consts), X, Y, Z, x, y,
+                                        n);
   return (int)cudaGetLastError();
 }
 

@@ -10,9 +10,11 @@
 //   buckets (J, S, 3, 8, n_lanes)     per-lane projective buckets 1..S
 //   reduced (J, S, 3, 8)              one projective point per (job, slot)
 //   out     (J, 3, 8)                 sum_v v * B_v per job
+//   X, Y, Z, x, y (N, 8)              to_affine's points, one per row
 // S is 15 for msm_bucket's radix-16 buckets (and the t-split's, whose H
 // sets sit on the lane axis) and 8 for the signed-digit buckets
-// (msm_designs.cuh); merge and wsum take any S.
+// (msm_designs.cuh); merge takes any S, wsum any S up to
+// WSUM_MAX_SLOTS.
 //
 // The constants below have twins of the same names in
 // hotproofs_tpu_torch/ops/msm_pallas.py (a CPU test holds them equal).
@@ -33,6 +35,15 @@ constexpr int MERGE_WARPS = MERGE_THREADS / 32;
 // constant, not the device's SM count, so the plain version and the CPU
 // tests reproduce G.
 constexpr int MERGE_TARGET_THREADS = 132 * 512;
+constexpr int WSUM_THREADS = 128;    // threads per msm_wsum block
+constexpr int WSUM_MAX_SLOTS = 32;   // a job's slots fit one warp
+// to_affine: threads per block and points per thread. 1,034,368 points
+// (the blake3-nova key) make 253 blocks of 4,096 points, within the 264
+// that fit the card at once at two blocks an SM: every block's Fermat
+// chain runs in the one wave.
+constexpr int AFFINE_THREADS = 256;
+constexpr int AFFINE_PER_THREAD = 16;
+constexpr int AFFINE_BLOCK = AFFINE_THREADS * AFFINE_PER_THREAD;
 
 // Blocks of `threads` threads that cover n launch indices.
 static inline unsigned blocks_for(long long n, int threads) {
@@ -230,29 +241,90 @@ HP_HD void merge_thread(const Consts& c, const u32* buckets, int S,
   }
 }
 
-// K3 body: sum_{v=1..S} v * B_v by running suffix sums (2S adds).
-HP_HD void wsum_job(const Consts& c, const u32* reduced, u32* out, int S,
-                    int j) {
-  Proj t, s;
-  pt_identity(c, t);
-  pt_identity(c, s);
-  for (int v = S; v >= 1; --v) {
-    Proj bv;
-    load_proj(reduced + ((size_t)j * S + (v - 1)) * 3 * NW, 1, bv);
-    pt_add(c, t, bv, t);
-    pt_add(c, s, t, s);
-  }
-  store_proj(out + (size_t)j * 3 * NW, 1, s);
+// K3: a job's S slots sit on G = wsum_group(S) lanes of a warp (32 / G
+// jobs a warp). Lane v holds B_{v+1}, slot v of job j, or the identity
+// where v >= S or j >= J.
+HP_HD int wsum_group(int S) {
+  int g = 1;
+  while (g < S) g *= 2;
+  return g;
 }
 
-// K4 body: affine (x, y) = (X / Z, Y / Z) of one projective point, Fermat
-// inversion in place (Z = 0 gives (0, 0)).
-HP_HD void affine_point(const Consts& c, const u32* X, const u32* Y,
-                        const u32* Z, u32* x, u32* y, size_t i) {
-  u32 zinv[NW];
-  fe_inv(c, Z + i * NW, zinv);
-  mont_mul(c, X + i * NW, zinv, x + i * NW);
-  mont_mul(c, Y + i * NW, zinv, y + i * NW);
+HP_HD void wsum_lane(const Consts& c, const u32* reduced, int S, int J,
+                     long long j, int v, Proj& r) {
+  if (j < J && v < S)
+    load_proj(reduced + ((size_t)j * S + v) * 3 * NW, 1, r);
+  else
+    pt_identity(c, r);
+}
+
+// K4 in three phases over a block of AFFINE_THREADS threads, thread t
+// owning the AFFINE_PER_THREAD points i_k = b * AFFINE_BLOCK + k *
+// AFFINE_THREADS + t (k = 0, 1, ...; those < n), a warp's points
+// contiguous for each k. A Z of 0 counts as 1 in every product.
+//
+// Phase 1: the running products P_k = Z_0 ... Z_k of the thread's points,
+// each written into x[i_k] (x is the scratch; phase 3 overwrites it), and
+// q = the last of them (1 if the thread has no point).
+HP_HD void affine_prefix(const Consts& c, const u32* Z, u32* x, long long n,
+                         long long b, int t, u32* q) {
+  bool any = false;
+  fe_copy(q, c.one);
+  for (int k = 0; k < AFFINE_PER_THREAD; ++k) {
+    const long long i = b * AFFINE_BLOCK + (long long)k * AFFINE_THREADS + t;
+    if (i >= n) break;
+    const u32* z = Z + (size_t)i * NW;
+    if (!fe_is_zero(z)) {
+      if (any)
+        mont_mul(c, q, z, q);
+      else
+        fe_copy(q, z);
+      any = true;
+    }
+    fe_copy(x + (size_t)i * NW, q);
+  }
+}
+
+// Phase 2, the block's part after its product scans: pre and suf (T
+// entries of NW words) hold the inclusive prefix and suffix products of
+// the threads' q. r = the product of every q of the block but thread t's.
+HP_HD void affine_others(const Consts& c, const u32* pre, const u32* suf,
+                         int t, u32* r) {
+  if (t == 0)
+    fe_copy(r, suf + NW);
+  else if (t == AFFINE_THREADS - 1)
+    fe_copy(r, pre + (size_t)(t - 1) * NW);
+  else
+    mont_mul(c, pre + (size_t)(t - 1) * NW, suf + (size_t)(t + 1) * NW, r);
+}
+
+// Phase 3: the back-walk from acc = 1 / q. At point k, 1 / Z_k = acc *
+// P_{k-1} (read from x), then acc *= Z_k, and x = X / Z, y = Y / Z; a Z of
+// 0 gives (0, 0). Four products a point, beside phase 1's one.
+HP_HD void affine_back(const Consts& c, const u32* X, const u32* Y,
+                       const u32* Z, u32* x, u32* y, long long n,
+                       long long b, int t, const u32* inv_q) {
+  u32 acc[NW];
+  fe_copy(acc, inv_q);
+  for (int k = AFFINE_PER_THREAD - 1; k >= 0; --k) {
+    const long long i = b * AFFINE_BLOCK + (long long)k * AFFINE_THREADS + t;
+    if (i >= n) continue;
+    const size_t o = (size_t)i * NW;
+    if (fe_is_zero(Z + o)) {
+      fe_zero(x + o);
+      fe_zero(y + o);
+      continue;
+    }
+    u32 inv[NW];
+    if (k > 0) {
+      mont_mul(c, acc, x + o - (size_t)AFFINE_THREADS * NW, inv);
+      mont_mul(c, acc, Z + o, acc);
+    } else {
+      fe_copy(inv, acc);
+    }
+    mont_mul(c, X + o, inv, x + o);
+    mont_mul(c, Y + o, inv, y + o);
+  }
 }
 
 }  // namespace hp

@@ -9,12 +9,16 @@ w. J MSMs over one shared base array run as one chain of three kernels:
 
   K1 msm_bucket  (replaces _bucket_kernel, msm_pallas.py:210)
   K2 msm_merge   (replaces _merge_kernel,  msm_pallas.py:288)
-  K3 msm_wsum    (replaces _wsum_kernel,   msm_pallas.py:358)
+  K3 msm_wsum    (replaces _wsum_kernel,   msm_pallas.py:358; a warp's
+                  lanes scan and sum a job's slots, 8 dependent adds at
+                  S = 15 where the serial suffix sum chains 30)
 
 and the bases come out of
 
   K4 to_affine   (replaces batch_inv_mont_lm + mont_mul_lm as composed by
-                  scaled_affine_device, msm_pallas.py:156-170)
+                  scaled_affine_device, msm_pallas.py:156-170; Montgomery's
+                  batch inversion, one Fermat chain per block of
+                  AFFINE_BLOCK points, where the TPU inverted every point)
 
 The bucket-design path (tools/msm_designs.py) adds three alternatives to
 K1, each followed by K2 and K3 over its own slot count S:
@@ -50,6 +54,14 @@ design does about it:
     are empty), reduces with warp shuffles, and where a slot spans several
     blocks the last of them sums their partials in index order.
     msm_merge_plain follows that order and those skips.
+  * K3 is bound by the latency of its dependent complete adds. A job's S
+    slots sit on G = wsum_group(S) lanes of a warp: a suffix scan over
+    log2 G shuffle levels, then a halving tree over log2 G more, with the
+    same identity skips; msm_wsum_plain follows that order.
+  * K4 is bound, after the batch trick, by the latency of one Fermat
+    chain a block (all blocks run theirs at once). Its output is the
+    field's unique inverse times X and Y, so it equals the Fermat form of
+    to_affine_words_plain bit for bit.
 
 Kernel layouts (int32 tensors holding u32 words):
   digits  (J, B, n_lanes)         bases   (B, 2, 8, n_lanes)
@@ -83,6 +95,11 @@ BUCKET_LANES = 128          # lanes (threads) per K1 block
 BUCKET_MAX_STEPS = 64       # the largest B K1 takes
 MERGE_THREADS = 128         # threads per K2 block
 MERGE_TARGET_THREADS = 132 * 512   # K2 threads per launch: 512 per H100 SM
+WSUM_THREADS = 128          # threads per K3 block
+WSUM_MAX_SLOTS = 32         # K3: a job's slots fit one warp
+AFFINE_THREADS = 256        # K4: threads per block, points per thread and
+AFFINE_PER_THREAD = 16      # points per block (one Fermat chain each)
+AFFINE_BLOCK = AFFINE_THREADS * AFFINE_PER_THREAD
 
 # ---------------------------------------------------------------------------
 # Plan, digits and base layout.
@@ -364,25 +381,52 @@ def msm_merge(spec: C.CurveSpec, buckets: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def wsum_group(S: int) -> int:
+    """K3's lanes per job, G, as csrc/msm.cuh computes it: the least power
+    of two >= S (16 at S = 15, 8 at S = 8)."""
+    g = 1
+    while g < S:
+        g *= 2
+    return g
+
+
+def wsum_depth(S: int) -> int:
+    """K3's critical path in dependent complete adds: log2 G levels of the
+    suffix scan and log2 G of the tree (the serial suffix sum: 2S)."""
+    return 2 * (wsum_group(S).bit_length() - 1)
+
+
 def msm_wsum_plain(spec: C.CurveSpec, reduced: torch.Tensor) -> torch.Tensor:
-    """Plain torch version of K3: running suffix sums over slots S..1."""
+    """Plain torch version of K3, in the kernel's order: slot v - 1 of each
+    job on lane v - 1 of G = wsum_group(S), the identity on lanes >= S;
+    an inclusive suffix scan (at offset 1, 2, ..., G / 2 lane v takes lane
+    v + off where that is < G), then the halving tree. Every add skips the
+    identity on either side."""
     J, S = reduced.shape[:2]
+    G = wsum_group(S)
     pts = tuple(F.words_to_h16(reduced[:, :, c]) for c in range(3))
-    t = C.h_identity(spec, (J,), reduced.device)
-    s = t
-    for v in range(S, 0, -1):
-        t = C.h_pt_add(spec, t, tuple(p[:, v - 1] for p in pts))
-        s = C.h_pt_add(spec, s, t)
-    return _proj_words(s).contiguous()
+    pad = C.h_identity(spec, (J, G - S), reduced.device)
+    acc = tuple(torch.cat([p, i], dim=1) for p, i in zip(pts, pad))
+    off = 1
+    while off < G:
+        new = _acc_add(spec, tuple(a[:, :G - off] for a in acc),
+                       tuple(a[:, off:] for a in acc))
+        acc = tuple(torch.cat([n, a[:, G - off:]], dim=1)
+                    for n, a in zip(new, acc))
+        off *= 2
+    return _proj_words(_halve(spec, acc)).contiguous()
 
 
 def msm_wsum(spec: C.CurveSpec, reduced: torch.Tensor) -> torch.Tensor:
-    """K3: reduced (J, S, 3, 8) -> sum_{v=1..S} v * B_v as (J, 3, 8)."""
+    """K3: reduced (J, S, 3, 8) -> sum_{v=1..S} v * B_v as (J, 3, 8);
+    S <= WSUM_MAX_SLOTS."""
     if reduced.dim() != 4:
         raise ValueError(f"msm_wsum: want (J, S, 3, {NW}), got "
                          f"{tuple(reduced.shape)}")
     J, S = reduced.shape[:2]
     _check_input("msm_wsum reduced", reduced, (J, S, 3, NW))
+    if S > WSUM_MAX_SLOTS:
+        raise ValueError(f"msm_wsum: S = {S} > {WSUM_MAX_SLOTS} slots")
     if not _on_cuda("msm_wsum", reduced):
         return msm_wsum_plain(spec, reduced)
     out = torch.empty((J, 3, NW), dtype=torch.int32, device=reduced.device)
@@ -399,7 +443,8 @@ def msm_wsum(spec: C.CurveSpec, reduced: torch.Tensor) -> torch.Tensor:
 
 def to_affine_words_plain(spec: C.CurveSpec, X, Y, Z):
     """Plain torch version of K4 on (N, 8) words: Fermat z^-1 (0 -> 0),
-    then x * z^-1 and y * z^-1."""
+    then x * z^-1 and y * z^-1. The kernel's batch inversion reaches the
+    same unique inverse, so the two agree bit for bit."""
     f = spec.base
     zinv = F.h_inv(f, F.words_to_h16(Z))
     return (F.h16_to_words(F.h_mont_mul(f, F.words_to_h16(X), zinv)),
@@ -408,7 +453,8 @@ def to_affine_words_plain(spec: C.CurveSpec, X, Y, Z):
 
 def to_affine_words(spec: C.CurveSpec, X: torch.Tensor, Y: torch.Tensor,
                     Z: torch.Tensor):
-    """K4 on (N, 8) Montgomery words -> affine (x, y) (N, 8) words."""
+    """K4 on (N, 8) Montgomery words -> affine (x, y) (N, 8) words (one
+    launch; the kernel keeps its running products in x meanwhile)."""
     n = X.shape[0]
     for name, t in (("X", X), ("Y", Y), ("Z", Z)):
         _check_input(f"to_affine {name}", t, (n, NW))

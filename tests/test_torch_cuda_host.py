@@ -149,11 +149,19 @@ def test_msm_kernel_bodies_vs_plain(hc, m, bits):
 
 
 def test_msm_constants_match_the_python_twins(hc):
-    """csrc/msm.cuh's launch constants and merge_group == msm_pallas's."""
-    got = np.zeros(5, np.int32)
+    """csrc/msm.cuh's launch constants, merge_group and wsum_group ==
+    msm_pallas's."""
+    got = np.zeros(9, np.int32)
     hc.hc_msm_constants(_p(got))
     assert got.tolist() == [MP.NBUCKET, MP.BUCKET_LANES, MP.BUCKET_MAX_STEPS,
-                            MP.MERGE_THREADS, MP.MERGE_TARGET_THREADS]
+                            MP.MERGE_THREADS, MP.MERGE_TARGET_THREADS,
+                            MP.WSUM_THREADS, MP.WSUM_MAX_SLOTS,
+                            MP.AFFINE_THREADS, MP.AFFINE_PER_THREAD]
+    for S in range(1, MP.WSUM_MAX_SLOTS + 1):
+        G = hc.hc_wsum_group(S)
+        assert G == MP.wsum_group(S) and G >= S and 32 % G == 0
+        assert G == 1 or G < 2 * S
+    assert (MP.wsum_depth(15), MP.wsum_depth(8), MP.wsum_depth(1)) == (8, 6, 0)
     for J in (1, 2, 16, 35, 36, 256, 4096):
         for S in (1, 8, 15):
             for L in (0, 1, 31, 33, 255, 256, 257, 2490, 16192, 64704,
@@ -311,6 +319,68 @@ def test_to_affine_body_vs_plain_and_host(hc):
     keep = [i for i in range(len(Xw)) if i != 4]
     assert np.array_equal(_digits(x_h).numpy()[keep],
                           xa.reshape(-1, 32)[keep])
+
+
+def _identity_words(spec):
+    """(3, 8) uint32 words of the projective identity (0 : 1 : 0)."""
+    w = np.zeros((3, 8), np.uint32)
+    w[1] = _words(torch.from_numpy(spec.base.one_mont_limbs))
+    return w
+
+
+@pytest.mark.parametrize("S,J", [(15, 1), (15, 3), (15, 5), (8, 1), (8, 3),
+                                 (8, 5), (1, 3), (3, 5), (17, 3), (32, 2)])
+def test_wsum_warp_replay_vs_plain(hc, S, J):
+    """K3's warp schedule under g++ (lanes, suffix-scan and tree shuffles,
+    identity skips) == the plain version, bit for bit: G = 16 lanes and 2
+    jobs a warp at S = 15, 8 and 4 at S = 8, up to a whole warp at S = 32;
+    jobs that end mid-warp; about a third of the slots the identity, one
+    job all identity, and at S = 15 the last slot (the one every T_v
+    holds) empty in one job."""
+    spec = C.PALLAS
+    rng = np.random.default_rng(100 * S + J)
+    red = _random_points(rng, spec.base, (J, S))              # (J, S, 3, 8)
+    empty = rng.random((J, S)) < 1 / 3
+    empty[J // 2] = True
+    if S == 15:
+        empty[0, S - 1] = True
+    red[empty] = _identity_words(spec)
+    want = MP.msm_wsum_plain(spec, torch.from_numpy(red.view(np.int32)))
+    got = _host(hc, "hc_msm_wsum", want.shape, _p(MP.consts_words(spec)),
+                _p(red), (J, S))
+    assert np.array_equal(got, want.numpy())
+    assert not got[J // 2, 2].any()                 # the empty job: identity
+    assert torch.equal(MP.msm_wsum(spec, torch.from_numpy(
+        red.view(np.int32))), want)                 # CPU wrapper: plain
+
+
+def test_to_affine_block_replay_vs_plain(hc):
+    """K4's batch inversion under g++ (each thread's running products, the
+    block's prefix and suffix scans and its one inversion, the back-walk)
+    == the Fermat plain version, bit for bit, over 2 1/4 blocks: Z = 0 at
+    one point, at every point of one thread of block 0, at every point of
+    block 1, and at every point of a thread of the last block, which ends
+    mid-thread. A Z of 0 gives (0, 0)."""
+    spec = C.PALLAS
+    T, c, blk = MP.AFFINE_THREADS, MP.AFFINE_PER_THREAD, MP.AFFINE_BLOCK
+    n = 2 * blk + 3 * T + 9                     # thread t < 9 of block 2 has 4
+    rng = np.random.default_rng(12)
+    pts = _random_points(rng, spec.base, (n,))              # (n, 3, 8)
+    zero = [5] + [k * T + 7 for k in range(c)] + list(range(blk, 2 * blk)) \
+        + [2 * blk + k * T + 3 for k in range(4)]
+    pts[zero, 2] = 0
+    X, Y, Z = (np.ascontiguousarray(pts[:, i]) for i in range(3))
+    x_h, y_h = np.zeros_like(X), np.zeros_like(Y)
+    hc.hc_to_affine(_p(MP.consts_words(spec)), _p(X), _p(Y), _p(Z),
+                    _p(x_h), _p(y_h), ctypes.c_longlong(n))
+    xp, yp = MP.to_affine_words_plain(spec, *(torch.from_numpy(a.view(
+        np.int32)) for a in (X, Y, Z)))
+    assert np.array_equal(x_h.view(np.int32), xp.numpy())
+    assert np.array_equal(y_h.view(np.int32), yp.numpy())
+    assert not x_h[zero].any() and not y_h[zero].any()
+    live = np.ones(n, bool)
+    live[zero] = False
+    assert x_h[live].any(axis=1).all()
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,7 @@ from hotproofs_tpu_torch.ops import field as F
 from hotproofs_tpu_torch.ops import msm_pallas as MP
 from hotproofs_tpu_torch.ops import pallas_field as PF
 from hotproofs_tpu_torch.tools import field_mul as FM
+from hotproofs_tpu_torch.tools import wsum_affine as WA
 
 # pytest-xdist runs several workers on one host: one intra-op thread
 # each keeps them from oversubscribing the cores.
@@ -54,6 +55,45 @@ def test_to_affine_kernel_vs_plain(dev, key):
     want = MP.to_affine_words_plain(SPEC, X, Y, Z)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def test_to_affine_kernel_vs_plain_across_blocks(dev):
+    """The batch inversion over 3 1/4 blocks == the Fermat plain version:
+    Z = 0 at one point, at every point of a thread of block 0, at every
+    point of block 1, and at every point of a thread of the last block,
+    which ends mid-thread."""
+    T, c, blk = MP.AFFINE_THREADS, MP.AFFINE_PER_THREAD, MP.AFFINE_BLOCK
+    n = 3 * blk + 3 * T + 9
+    X, Y, Z = WA.random_projective(np.random.default_rng(5), n, dev)
+    zero = [5] + [k * T + 7 for k in range(c)] + list(range(blk, 2 * blk)) \
+        + [3 * blk + k * T + 3 for k in range(4)]
+    Z[zero] = 0
+    before = MP.launches["to_affine"]
+    got = MP.to_affine_words(SPEC, X, Y, Z)
+    assert MP.launches["to_affine"] == before + 1
+    want = MP.to_affine_words_plain(SPEC, X, Y, Z)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+        assert not g[zero].any()
+
+
+@pytest.mark.parametrize("S", [15, 8])
+@pytest.mark.parametrize("J", [0, 1, 2, 256])
+def test_wsum_kernel_vs_plain(dev, J, S):
+    """The warp-parallel weighted sum == its plain version: a tenth of the
+    slots the identity, and job 0 all identity."""
+    red = WA.random_reduced(np.random.default_rng(J + S), J, S, dev)
+    if J:
+        red[0] = 0
+        red[0, :, 1] = F.digits_to_words(torch.from_numpy(
+            SPEC.base.one_mont_limbs).to(dev))
+    before = MP.launches["msm_wsum"]
+    got = MP.msm_wsum(SPEC, red)
+    assert MP.launches["msm_wsum"] == before + (1 if J else 0)
+    assert got.shape == (J, 3, 8)
+    assert torch.equal(got, MP.msm_wsum_plain(SPEC, red))
+    if J:
+        assert not got[0, 2].any()
 
 
 @pytest.mark.parametrize("bits", [40, 256])

@@ -14,6 +14,7 @@ from hotproofs_tpu.ops import msm as RM
 from hotproofs_tpu.ops import msm_pallas as RMP
 from hotproofs_tpu_torch.nova.pedersen import CommitmentKey
 from hotproofs_tpu_torch.ops import curve as C
+from hotproofs_tpu_torch.ops import field as F
 from hotproofs_tpu_torch.ops import msm_pallas as MP
 from hotproofs_tpu_torch.utils import bridge
 
@@ -70,6 +71,83 @@ def test_msm_many_vs_host_msm_at_each_plan_b(b, bits):
     got = C.pt_to_affine_host(SPEC, MP.msm_many(SPEC, sc, bases, m, bits, b))
     assert got[1] is None
     assert got == [RC.host_msm(RC.PALLAS, k, gens) for k in ks]
+
+
+def _proj_words(pts, rng):
+    """Affine int pairs (None = identity) -> (n, 3, 8) int32 Montgomery
+    projective words, each point scaled by its own random lambda (Z is no
+    longer 1)."""
+    f = SPEC.base
+    rows = []
+    for pt in pts:
+        if pt is None:
+            xyz = (0, 1, 0)
+        else:
+            lam = 1 + int.from_bytes(rng.bytes(32), "little") % (f.p - 1)
+            xyz = (pt[0] * lam, pt[1] * lam, lam)
+        rows.append([f.to_mont_int(v % f.p) for v in xyz])
+    w = [[(v >> (32 * k)) & 0xFFFFFFFF for k in range(8)]
+         for row in rows for v in row]
+    return torch.from_numpy(np.asarray(w, np.uint32).view(np.int32)
+                            .reshape(len(pts), 3, 8))
+
+
+def _serial_wsum(slots):
+    """The reference's running suffix sum over slots S..1 on the host
+    oracle: t += B_v, s += t (affine, None = identity)."""
+    t = s = None
+    for b in reversed(slots):
+        t = RC.host_add(RC.PALLAS, t, b)
+        s = RC.host_add(RC.PALLAS, s, t)
+    return s
+
+
+@pytest.mark.parametrize("S,J", [(15, 1), (15, 3), (8, 3), (8, 5), (1, 2),
+                                 (5, 2), (32, 2)])
+def test_wsum_order_vs_reference_suffix_sum(S, J):
+    """The scan-and-tree order of msm_wsum_plain (K3's) gives, as affine
+    points, the reference's serial suffix sum sum_v v * B_v: random points
+    with random Z, a quarter of the slots the identity, job 1 all
+    identity."""
+    rng = np.random.default_rng(7 * S + J)
+    slots = [[None if rng.random() < 0.25 else C.host_scalar_mul(
+        SPEC, 1 + int(rng.integers(1 << 62)), SPEC.gen) for _ in range(S)]
+        for _ in range(J)]
+    if J > 1:
+        slots[1] = [None] * S
+    red = _proj_words([p for job in slots for p in job], rng).reshape(
+        J, S, 3, 8)
+    s = MP.msm_wsum(SPEC, red)
+    got = C.pt_to_affine_host(SPEC, tuple(
+        F.words_to_digits(s[:, c]) for c in range(3)))
+    assert got == [_serial_wsum(job) for job in slots]
+    if J > 1:
+        assert got[1] is None
+
+
+def test_wsum_rejects_more_slots_than_a_warp():
+    red = torch.zeros((1, MP.WSUM_MAX_SLOTS + 1, 3, 8), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        MP.msm_wsum(SPEC, red)
+
+
+def test_wsum_affine_tool_checks_every_shape():
+    """tools/wsum_affine.py on the CPU at small sizes: a line and a passed
+    check a shape (J = 0 included); its one-block shape is the kernel's
+    block."""
+    from hotproofs_tpu_torch.tools import wsum_affine as WA
+    assert WA.AFFINE_SHAPES["one block"] == MP.AFFINE_BLOCK
+    assert WA.AFFINE_SHAPES["blake3-nova key"] == 1034368
+    lines = []
+    res = WA.run(torch.device("cpu"), np.random.default_rng(0), reps=1,
+                 wsum_shapes={"a": (3, 15), "b": (2, 8), "none": (0, 15)},
+                 affine_shapes={"x": 40}, out=lines.append)
+    assert WA.all_ok(res) and len(lines) == 4
+    assert all(line.endswith("== plain OK") for line in lines)
+    X, Y, Z = WA.random_projective(np.random.default_rng(1), 200, "cpu")
+    assert 0 < int((Z == 0).all(1).sum()) < 60
+    red = WA.random_reduced(np.random.default_rng(2), 4, 15, "cpu")
+    assert 0 < int((red[:, :, 2] == 0).all(-1).sum()) < 30
 
 
 def test_plan_and_layouts():

@@ -130,6 +130,38 @@ def test_tsplit_and_signed_msm_vs_host_msm(m, bits):
     assert _affine(MP.msm_wsum(SPEC, MP.msm_merge(SPEC, bk))) == want
 
 
+@pytest.mark.parametrize("bits", [40, 256])
+def test_signed_slots_wsum_vs_serial_suffix_sum(bits):
+    """msm_wsum's scan-and-tree order at the signed digits' S = 8 (G = 8
+    lanes, 6 dependent adds) over the merged signed buckets == the
+    reference's running suffix sum over the same 8 slots on the host
+    oracle, as affine points; the all-zero job's slots and sum are the
+    identity."""
+    m = 20
+    gens = _gens(m, seed=bits + 3)
+    ks = _scalars(m, bits, seed=bits + 4)
+    sbits = MP.signed_bits(bits)
+    b, lpw, w4, _ = MP.plan(m, sbits)
+    sd = MP.signed_digits_tm(_sc(ks), m, b, lpw, w4)
+    red = MP.msm_merge(SPEC, MP.msm_bucket_signed(
+        SPEC, sd, MP.bases_tm(*_scaled(gens, sbits), m, sbits)))
+    J, S = red.shape[:2]
+    assert (S, MP.wsum_group(S), MP.wsum_depth(S)) == (MP.NSIGNED, 8, 6)
+    slots = C.pt_to_affine_host(SPEC, tuple(
+        F.words_to_digits(red[:, :, c]).reshape(J * S, 32)
+        for c in range(3)))
+    want = []
+    for j in range(J):
+        t = s = None
+        for p in reversed(slots[j * S:(j + 1) * S]):
+            t = RC.host_add(RC.PALLAS, t, p)
+            s = RC.host_add(RC.PALLAS, s, t)
+        want.append(s)
+    assert _affine(MP.msm_wsum(SPEC, red)) == want
+    assert want == [RC.host_msm(RC.PALLAS, k, gens) for k in ks]
+    assert slots[S:2 * S] == [None] * S and want[1] is None
+
+
 @pytest.mark.parametrize("m,bits", [(24, 256), (320, 40)])
 def test_msm_chain_equals_host_lane_sums(m, bits):
     """Lane w * lpw + c sums 16^w G_i over i in [c B, (c + 1) B); the

@@ -27,6 +27,7 @@ from hotproofs_tpu_torch.ops import curve as C
 from hotproofs_tpu_torch.ops import poseidon as P
 from hotproofs_tpu_torch.tools import field_mul as FM
 from hotproofs_tpu_torch.tools import msm_designs as D
+from hotproofs_tpu_torch.tools import wsum_affine as WA
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "hotproofs_tpu_torch").rglob("*.py")) \
@@ -58,6 +59,7 @@ import sys
 import hotproofs_tpu_torch.models.chunk_prover
 import hotproofs_tpu_torch.tools.msm_designs
 import hotproofs_tpu_torch.tools.field_mul
+import hotproofs_tpu_torch.tools.wsum_affine
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib")
              or (m.startswith("hotproofs_tpu")
@@ -146,13 +148,14 @@ def test_entry_points_default_to_the_card(capsys):
             CP.main(argv)
         assert e.value.code == 0
         assert "default: cuda" in capsys.readouterr().out
-    for tool in (D, FM):
+    for tool in (D, FM, WA):
         with pytest.raises(SystemExit):
             tool.main(["--help"])
         assert "default: cuda" in capsys.readouterr().out
     if torch.cuda.is_available():
         pytest.skip("a card is present: the no-card error cannot show")
     for make in (CP.ChunkProver, lambda: D.main([]), lambda: FM.main([]),
+                 lambda: WA.main([]),
                  lambda: CP.main(["verify", "--proof", "x"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
