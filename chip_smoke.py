@@ -42,7 +42,24 @@ exit and no result line:
      equality); mont_mul at the prover's own to_mont and from_mont shapes;
      then the tool's run at N = 16,384 and 131,072, one line per kernel,
      stage and part with its time, its plain version's and its bound, and
-     the launch counts of that run (every one must be > 0).
+     the launch counts of that run (every one must be > 0);
+  8. vk and segments, with the launch counts set to 0 before it: the
+     phase-4 prover's verification key is exported, phase 4's proof
+     verified from it alone (nova/vk.py) and a vk with one matrix value
+     changed refused; phase 4's chunk is proved as 4 segments
+     (prove_segmented: in lockstep, then on the thread pool with the same
+     bytes) and verified, segment 2 byte-equal to a standalone prove_batch
+     over its steps, a swapped pair refused; the
+     reference's proof of a 2-block chunk (tests/data) verifies and the
+     port's proof of that chunk equals it byte for byte; a 1,024-step chain
+     on the depth-13 circuit (tools/longchain_deep.py) is proved as 8
+     segments in lockstep waves of 4, stopped after wave 1 and run again on
+     the same checkpoints (4 resumed, 4 proved), and verified to its
+     published root; then the launch counts of the phase (msm_bucket,
+     msm_merge, msm_wsum and mont_mul must be > 0); last, msm_bucket,
+     msm_merge, msm_wsum and mont_mul against their plain versions on the
+     inputs of the first MSM and to_mont call of each shape, scalars not
+     all zero, that the segment runs gave them (exact equality).
 The last two lines are the kernels' JSON summary (with each kernel's
 bound: the least time the card could take for the work of its timed
 call) and the result line.
@@ -51,6 +68,8 @@ call) and the result line.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gzip
 import json
 import multiprocessing as mp
 import os
@@ -62,6 +81,13 @@ import numpy as np
 import torch
 
 FILE_BYTES = 64 << 20   # 65,536 chunks: a chunk proof is 16 blocks + 16 levels
+# Phase 8's long chain: 1,024 steps on the depth-13 circuit, 8 segments in
+# lockstep waves of 4.
+LONG_STEPS, LONG_SEGMENTS, LONG_GROUP = 1024, 8, 4
+# The reference's proof of chunk 1 of CHUNK2_DATA (tests/data).
+REF_CHUNK2 = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "tests", "data", "torch_chunk2_proof_ref.json.gz")
+CHUNK2_DATA = bytes(range(256)) * 4 + bytes(range(100))
 CSRC = "hotproofs_tpu_torch/csrc/"
 # kernel -> (source, TPU kernel it replaces)
 KERNELS = {
@@ -293,6 +319,215 @@ def designs_phase(prover, data, dev, rng, note, stats, bounds,
                 "designs path")
     say("6 host", ", ".join(f"{k} {v:.3f}" for k, v in res["host"].items()))
     return {k: design_counts[k] for k in DESIGNS}
+
+
+@contextlib.contextmanager
+def capturing(seen: dict, label: str):
+    """While active, keep in seen the inputs of the first msm_many and
+    to_mont call of each shape not seen before whose scalars are not all
+    zero (a chain's first cross term is), keyed by (kind, shape), with the
+    label of the run that gave them: phase 8 holds the kernels against
+    their plain versions on them."""
+    from hotproofs_tpu_torch.ops import field as F
+    from hotproofs_tpu_torch.ops import msm_pallas as MP
+
+    msm_many, to_mont = MP.msm_many, F.to_mont
+
+    def msm_rec(spec, scalars, bases, m, max_bits, b=None, bases_lm=None):
+        key = ("msm", (scalars.shape[0], m, max_bits))
+        if key not in seen and bool(scalars.any()):
+            seen[key] = (label, spec, scalars.clone(), bases, m, max_bits,
+                         b, bases_lm)
+        return msm_many(spec, scalars, bases, m, max_bits, b, bases_lm)
+
+    def mont_rec(spec, a):
+        key = ("to_mont", tuple(a.shape))
+        if key not in seen and bool(a.any()):
+            seen[key] = (label, spec, a.clone())
+        return to_mont(spec, a)
+
+    MP.msm_many, F.to_mont = msm_rec, mont_rec
+    try:
+        yield
+    finally:
+        MP.msm_many, F.to_mont = msm_many, to_mont
+
+
+def check_captured(seen: dict, dev, note, tag: str) -> None:
+    """msm_bucket, msm_merge and msm_wsum (each captured MSM) and mont_mul
+    (each captured to_mont) == their plain versions on the inputs."""
+    from hotproofs_tpu_torch.ops import msm_pallas as MP
+    from hotproofs_tpu_torch.ops import pallas_field as PF
+
+    for (kind, dims), (label, *inp) in seen.items():
+        t0 = time.perf_counter()
+        if kind == "to_mont":
+            spec, x = inp
+            note("mont_mul", PF.mont_mul_em(spec, x, PF.const_digits(
+                spec, "r2", dev)), PF.mont_mul_em_plain(
+                spec, x, PF.const_digits(spec, "r2", dev)))
+            what = f"mont_mul (to_mont of {' x '.join(map(str, dims[:2]))})"
+        else:
+            spec, sc, bases, m, bits, b, lm = inp
+            b, lpw, w4, _ = MP.plan(m, bits, b)
+            d = MP.digits_tm(sc, m, b, lpw, w4)
+            bk = MP.msm_bucket(spec, d, bases, lm)
+            note("msm_bucket", bk, MP.msm_bucket_plain(spec, d, bases))
+            red = MP.msm_merge(spec, bk)
+            note("msm_merge", red, MP.msm_merge_plain(spec, bk))
+            note("msm_wsum", MP.msm_wsum(spec, red),
+                 MP.msm_wsum_plain(spec, red))
+            what = f"msm_bucket, msm_merge, msm_wsum (J={dims[0]}, " \
+                f"m={m}, {bits} bits, nonzero digits " \
+                f"{float((d != 0).float().mean()):.4f})"
+        torch.cuda.synchronize()
+        say(tag, f"{label}: {what} == plain "
+            f"({time.perf_counter() - t0:.1f} s)")
+
+
+def segments_phase(prover, data, ci, proof, root, dev, note) -> dict:
+    """Phase 8: the verification key and the segments path. Returns the
+    kernels' launch counts of the phase (its kernel checks, which come
+    last, not counted)."""
+    import tempfile
+
+    from hotproofs_tpu_torch.models.chunk_prover import verify_with_vk
+    from hotproofs_tpu_torch.nova.vk import ivc_from_vk
+    from hotproofs_tpu_torch.ops import msm_pallas as MP
+    from hotproofs_tpu_torch.parallel.segments import SegmentedProof
+    from hotproofs_tpu_torch.tools import longchain_deep as LD
+
+    tag = "8 vk+segments"
+    seen: dict = {}
+    MP.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        vk = os.path.join(tmp, "vk.json")
+        prover.export_vk(vk)
+        t0 = time.perf_counter()
+        got = verify_with_vk(vk, proof, device=dev)
+        say(tag, f"verify_with_vk chunk {ci} ({proof.ivc_proof.num_steps} "
+            f"folds) from the vk alone: {time.perf_counter() - t0:.2f} s "
+            f"(vk {os.path.getsize(vk)} bytes)")
+        require(got == root, "verify_with_vk returned another root")
+        with open(vk) as f:
+            d = json.load(f)
+        d["A"]["vals"][0] = (d["A"]["vals"][0] + 1) % prover.modulus
+        bad = os.path.join(tmp, "bad_vk.json")
+        with open(bad, "w") as f:
+            json.dump(d, f)
+        try:
+            ivc_from_vk(bad, device=dev)
+        except AssertionError as e:
+            require("pp digest mismatch" in str(e), f"vk refused: {e}")
+            say(tag, f"vk with one matrix value changed refused ({e})")
+        else:
+            require(False, "a vk with a changed matrix value was accepted")
+
+        t0 = time.perf_counter()
+        with capturing(seen, "chunk, lockstep K=4"):
+            root_s, sp = prover.prove_segmented(data, ci, 4)
+        dt = time.perf_counter() - t0
+        n = sp.segmented.num_steps
+        say(tag, f"prove_segmented chunk {ci}: {n} folds as segments of "
+            f"{[s.num_steps for s in sp.segmented.segments]} in lockstep in "
+            f"{dt:.2f} s ({n / dt:.3f} folds/s)")
+        t0 = time.perf_counter()
+        with capturing(seen, "chunk, thread pool"):
+            _, pool = prover.prove_segmented(data, ci, 4, devices=[dev])
+        dt = time.perf_counter() - t0
+        require(json.dumps(pool.to_dict()) == json.dumps(sp.to_dict()),
+                "the thread pool's segments differ from the lockstep's")
+        say(tag, f"prove_segmented chunk {ci} on the thread pool "
+            f"(devices=[{dev}]): {dt:.2f} s ({n / dt:.3f} folds/s), "
+            "byte-equal to the lockstep proof")
+        t0 = time.perf_counter()
+        require(root_s == root and prover.verify_segmented(sp) == root,
+                "verify_segmented returned another root")
+        say(tag, f"verify_segmented: {time.perf_counter() - t0:.2f} s")
+        zs, _, canon, X = prover._device_witness_chain(
+            prover._hash_with_path(data, ci))
+        alone = prover.ivc.prove_batch(zs[16], canon[16:24], X[16:24])
+        require(json.dumps(alone.to_dict()) == json.dumps(
+            sp.segmented.segments[2].to_dict()),
+            "segment 2 differs from its standalone prove_batch")
+        say(tag, "segment 2 is byte-equal to prove_batch over steps "
+            "[16, 24)")
+        swapped = SegmentedProof.from_dict(sp.segmented.to_dict())
+        s = swapped.segments
+        s[1], s[2] = s[2], s[1]
+        try:
+            prover.verify_segmented(type(sp)(swapped, sp.chunk_idx,
+                                             sp.n_blocks, sp.leaf_depth,
+                                             sp.total_depth))
+        except AssertionError as e:
+            require("does not chain" in str(e), f"swap refused: {e}")
+            say(tag, f"segments 1 and 2 swapped: refused ({e})")
+        else:
+            require(False, "a segmented proof with swapped segments "
+                    "verified")
+
+        # The reference's real-size proof (JAX package, on the CPU) of
+        # chunk 1 of a 2-chunk file: the port accepts it and proves the
+        # same bytes on the card.
+        ref = gzip.decompress(open(REF_CHUNK2, "rb").read())
+        ref_path = os.path.join(tmp, "ref.json")
+        with open(ref_path, "wb") as f:
+            f.write(ref)
+        want = _oracle_root(CHUNK2_DATA)
+        require(prover.verify(type(proof).load(ref_path), want) == want,
+                "the reference's chunk proof did not verify")
+        got, mine = prover.prove(CHUNK2_DATA, 1)
+        mine_path = os.path.join(tmp, "port.json")
+        mine.save(mine_path)
+        with open(mine_path, "rb") as f:
+            require(got == want and f.read() == ref,
+                    "the port's proof differs from the reference's")
+        say(tag, "the reference's proof of a 2-block chunk verifies, and "
+            "the port's proof of it is byte-equal")
+
+        t0 = time.perf_counter()
+        p13 = type(prover)(depth_bits=LD.DEPTH_BITS, device=dev)
+        p13.ivc.prepare_key()
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        chain = LD.deep_chain(p13, LONG_STEPS)
+        say(tag, f"depth-{LD.DEPTH_BITS} prover setup {setup:.1f} s; "
+            f"{LONG_STEPS}-step witness on the card, kept on the host "
+            f"({chain['canon'].nbytes / 1e9:.2f} GB): "
+            f"{chain['witness_s']:.1f} s")
+        ckpt = os.path.join(tmp, "ckpt")
+        with capturing(seen, f"depth {LD.DEPTH_BITS}, lockstep K="
+                       f"{LONG_GROUP}"):
+            first = LD.prove(p13, chain, LONG_SEGMENTS, LONG_GROUP, ckpt,
+                             stop_after=1)
+        require(first["proof"] is None and first["proved"] == LONG_GROUP,
+                f"the first run proved {first['proved']} segments, want "
+                f"{LONG_GROUP} (one wave)")
+        second = LD.prove(p13, chain, LONG_SEGMENTS, LONG_GROUP, ckpt)
+        want = LONG_SEGMENTS - LONG_GROUP
+        require(second["resumed"] == LONG_GROUP and second["proved"] == want,
+                f"the rerun resumed {second['resumed']} and proved "
+                f"{second['proved']} segments, want {LONG_GROUP} and {want}")
+        for i, w in enumerate(first["waves"] + second["waves"]):
+            say(tag, f"wave {i + 1}: {w['segments']} segments, {w['folds']} "
+                f"folds in {w['s']:.2f} s ({w['folds_per_s']:.3f} folds/s)")
+        say(tag, f"rerun: {second['resumed']} resumed, {second['proved']} "
+            "proved")
+        v = LD.verify(p13, chain, second["proof"])
+        say(tag, f"verify_segments of the {LONG_STEPS}-step chain: {v:.2f} s;"
+            f" final state == the published root "
+            f"{chain['pd'].root_hash.hex()[:16]}...")
+    torch.cuda.synchronize()
+    counts = dict(MP.launches)
+    say(tag, f"phase {time.perf_counter() - t_phase:.1f} s; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        "launches " + ", ".join(f"{k} {counts[k]}" for k in MAIN))
+    for k in ("msm_bucket", "msm_merge", "msm_wsum", "mont_mul"):
+        require(counts[k] > 0, f"{k} was not launched in phase 8")
+    check_captured(seen, dev, note, tag)
+    return counts
 
 
 def field_phase(prover, dev, rng, note, stats, bounds) -> dict:
@@ -703,6 +938,9 @@ def main() -> int:
     # mont_mul's count in the kernels line stays the main path's (phase 5).
     field_counts = field_phase(prover, dev, rng, note, stats, bounds)
     counts.update({k: field_counts[k] for k in FIELD if k not in MAIN})
+
+    # -- 8. vk and segments --------------------------------------------------
+    segments_phase(prover, data, ci, proof, root, dev, note)
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": CSRC + src,

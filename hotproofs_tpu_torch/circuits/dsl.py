@@ -438,6 +438,7 @@ class CompiledEvaluator:
             else:  # hintv
                 _, fn, deps, start, n = op
                 vs = fn(*[ev(d) for d in deps])
+                assert len(vs) == n
                 for i in range(n):
                     w[start + i] = int(vs[i]) % p
         assert all(v is not None for v in w), "unset signals remain"

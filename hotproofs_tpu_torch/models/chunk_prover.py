@@ -1,15 +1,19 @@
 """Prove and verify possession of a BLAKE3 chunk by Nova folding (port of
-hotproofs_tpu/models/chunk_prover.py: prove, prove_many, verify, the CLI).
+hotproofs_tpu/models/chunk_prover.py: prove, prove_many, verify, the
+verification key, segmented proofs, the CLI).
 
 One step per 64-byte block of the chunk plus one per Merkle level; the
-verifier recomputes the root hash from the final state z[2:10]. Proofs are
-the reference's JSON format, byte for byte.
+verifier recomputes the root hash from the final state z[2:10]. Proofs and
+verification keys are the reference's JSON formats, byte for byte.
 
 Usage (CLI):
     python -m hotproofs_tpu_torch.models.chunk_prover prove --file F \
         --chunk 0 --out proof.json [--device cuda|cpu]
     python -m hotproofs_tpu_torch.models.chunk_prover verify \
-        --proof proof.json --expect-hash HEX [--device cuda|cpu]
+        --proof proof.json --expect-hash HEX [--vk vk.json] \
+        [--device cuda|cpu]
+    python -m hotproofs_tpu_torch.models.chunk_prover export-vk \
+        --out vk.json [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -32,8 +36,11 @@ from ..nova import serial
 from ..nova.ivc import IVC, IVCProof, check
 from ..nova.pedersen import CommitmentKey
 from ..nova.r1cs import ShapeDevice
+from ..nova.vk import export_vk, ivc_from_vk
 from ..ops import curve as C
 from ..ops import field as F
+from ..parallel.segments import (SegmentedProof, prove_segments,
+                                 verify_segments)
 from ..utils.config import require_device
 
 IO_ARITY = nova_circ.IO_ARITY
@@ -98,6 +105,37 @@ class ChunkProof:
             total_depth=int(d["total_depth"]))
 
 
+@dataclass
+class SegmentedChunkProof:
+    """Chunk statement + a segment-parallel fold proof
+    (parallel/segments.SegmentedProof)."""
+
+    segmented: SegmentedProof
+    chunk_idx: int
+    n_blocks: int
+    leaf_depth: int
+    total_depth: int
+
+    def to_dict(self) -> dict:
+        return {"segmented": self.segmented.to_dict(),
+                "chunk_idx": int(self.chunk_idx),
+                "n_blocks": int(self.n_blocks),
+                "leaf_depth": int(self.leaf_depth),
+                "total_depth": int(self.total_depth)}
+
+    def save(self, path: str) -> None:
+        serial.dump("segmented_chunk_proof", self.to_dict(), path)
+
+    @staticmethod
+    def load(path: str) -> "SegmentedChunkProof":
+        d = serial.load("segmented_chunk_proof", path)
+        return SegmentedChunkProof(
+            segmented=SegmentedProof.from_dict(d["segmented"]),
+            chunk_idx=int(d["chunk_idx"]), n_blocks=int(d["n_blocks"]),
+            leaf_depth=int(d["leaf_depth"]),
+            total_depth=int(d["total_depth"]))
+
+
 def check_statement(modulus: int, z0, num_steps, chunk_idx, n_blocks,
                     leaf_depth, total_depth) -> None:
     """z0 must encode (IV, depth = leaf_depth - 1, block_count = 0, the
@@ -132,12 +170,37 @@ def check_final(z_final, n_blocks, expected_hash: Optional[bytes],
     return root
 
 
+def _proof_root(z_final, proof, expected_hash: Optional[bytes]) -> bytes:
+    """check_final against a chunk proof's statement fields."""
+    return check_final(z_final, proof.n_blocks, expected_hash,
+                       chunk_idx=proof.chunk_idx,
+                       leaf_depth=proof.leaf_depth,
+                       total_depth=proof.total_depth)
+
+
+def verify_with_vk(vk_path: str, proof: ChunkProof,
+                   expected_hash: Optional[bytes] = None,
+                   device="cuda") -> bytes:
+    """Verify a chunk proof from an exported verification key alone (the
+    circuit DSL and the witness code are never built); returns the root."""
+    ivc = ivc_from_vk(vk_path, device)
+    check_statement(ivc.shape.field.p, proof.ivc_proof.z0,
+                    proof.ivc_proof.num_steps, proof.chunk_idx,
+                    proof.n_blocks, proof.leaf_depth, proof.total_depth)
+    return _proof_root(ivc.verify(proof.ivc_proof, io_arity=IO_ARITY),
+                       proof, expected_hash)
+
+
 class ChunkProver:
     """prove/verify pair for BLAKE3 chunk possession on one device (the
     card unless device='cpu')."""
 
     def __init__(self, curve: str = "pallas", depth_bits: int = 8,
                  device="cuda"):
+        """depth_bits widens the circuit's depth decompositions past 8 bits
+        (tree depth 255): 13 admits 4,096-step chains
+        (tools/longchain_deep.py). Each (curve, depth_bits) is its own
+        circuit with its own pp digest."""
         self.depth_bits = depth_bits
         self.device = require_device(device)
         self.ivc, self.layout, self.modulus = _build_stack(
@@ -178,6 +241,21 @@ class ChunkProver:
         X_host = [list(zs[i + 1]) + list(zs[i]) for i in range(n)]
         return zs, sched, canon, X_host
 
+    def _host_witness_chain(self, proof_data, slice_steps: int = 512):
+        """Like _device_witness_chain, but canon is host numpy, generated
+        on the device in slices of slice_steps: a 4,096-step chain's digits
+        (about 8.4 GB) stay off the card beside the fold's state, and the
+        prover uploads one chunk of steps at a time."""
+        zs, sched = nova_circ.z_chain(proof_data, self.modulus)
+        n = len(sched.steps)
+        canon = np.empty((n, self.ivc.shape.n_vars, F.N_LIMBS), np.int32)
+        for a in range(0, n, slice_steps):
+            b = min(n, a + slice_steps)
+            canon[a:b] = self._witness_slice_canon(zs, sched, a,
+                                                b).cpu().numpy()
+        X_host = [list(zs[i + 1]) + list(zs[i]) for i in range(n)]
+        return zs, sched, canon, X_host
+
     def _chunk_proof(self, proof_data, sched, ci, ivc_proof) -> ChunkProof:
         return ChunkProof(ivc_proof=ivc_proof, chunk_idx=ci,
                           n_blocks=sched.n_blocks,
@@ -208,63 +286,107 @@ class ChunkProver:
             self._chunk_proof(pd, sched, ci, p)
             for (pd, sched, ci), p in zip(metas, ivc_proofs)]
 
+    def prove_segmented(self, data: bytes, chunk_idx: int,
+                        n_segments: int, devices=None,
+                        progress: bool = False
+                        ) -> Tuple[bytes, SegmentedChunkProof]:
+        """Prove a chunk as n_segments independent fold chains composed by
+        public-IO chaining (parallel/segments.py). On the prover's own
+        device the segments fold together (the lockstep path); with a
+        devices list each is proved on its device of the list (the thread
+        pool). Both paths give the same bytes."""
+        proof_data = self._hash_with_path(data, chunk_idx)
+        zs, sched, canon, X_host = self._device_witness_chain(proof_data)
+        seg = prove_segments(self.ivc, zs, canon, X_host, n_segments,
+                             devices=devices, lockstep=devices is None,
+                             progress=progress)
+        return proof_data.root_hash, SegmentedChunkProof(
+            segmented=seg, chunk_idx=chunk_idx, n_blocks=sched.n_blocks,
+            leaf_depth=sched.leaf_depth, total_depth=proof_data.total_depth)
+
+    def export_vk(self, path: str) -> None:
+        """Write the standalone verification key (nova/vk.py): anyone can
+        then verify chunk proofs with verify_with_vk or `verify --vk`."""
+        export_vk(self.ivc, path, statement="blake3-chunk",
+                  io_arity=IO_ARITY)
+
     def verify(self, proof: ChunkProof,
                expected_hash: Optional[bytes] = None) -> bytes:
         """Verify the fold chain and statement; returns the proven root."""
         check_statement(self.modulus, proof.ivc_proof.z0,
                         proof.ivc_proof.num_steps, proof.chunk_idx,
                         proof.n_blocks, proof.leaf_depth, proof.total_depth)
-        z_final = self.ivc.verify(proof.ivc_proof, io_arity=IO_ARITY)
-        return check_final(z_final, proof.n_blocks, expected_hash,
-                           chunk_idx=proof.chunk_idx,
-                           leaf_depth=proof.leaf_depth,
-                           total_depth=proof.total_depth)
+        return _proof_root(self.ivc.verify(proof.ivc_proof,
+                                           io_arity=IO_ARITY),
+                           proof, expected_hash)
+
+    def verify_segmented(self, proof: SegmentedChunkProof,
+                         expected_hash: Optional[bytes] = None) -> bytes:
+        """Verify every segment, their chaining and the statement."""
+        check_statement(self.modulus, proof.segmented.z0,
+                        proof.segmented.num_steps, proof.chunk_idx,
+                        proof.n_blocks, proof.leaf_depth, proof.total_depth)
+        return _proof_root(verify_segments(self.ivc, proof.segmented,
+                                           io_arity=IO_ARITY),
+                           proof, expected_hash)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     sub = ap.add_subparsers(dest="cmd", required=True)
+    dev_help = "torch device (default: %(default)s)"
     p1 = sub.add_parser("prove")
     p1.add_argument("--file", required=True)
     p1.add_argument("--chunk", type=int, default=0)
     p1.add_argument("--out", default="proof.json")
     p1.add_argument("--compress", action="store_true",
                     help=f"compressed proof (Spartan): {NOT_PORTED}")
-    p1.add_argument("--device", default="cuda",
-                    help="torch device (default: %(default)s)")
+    p1.add_argument("--device", default="cuda", help=dev_help)
     p2 = sub.add_parser("verify")
     p2.add_argument("--proof", required=True)
     p2.add_argument("--expect-hash", default=None)
     p2.add_argument("--vk", default=None,
-                    help=f"verify from an exported vk: {NOT_PORTED}")
-    p2.add_argument("--device", default="cuda",
-                    help="torch device (default: %(default)s)")
-    sub.add_parser("export-vk", help=NOT_PORTED)
+                    help="verify from an exported vk.json alone (the "
+                         "prover's circuit is never built)")
+    p2.add_argument("--device", default="cuda", help=dev_help)
+    p3 = sub.add_parser("export-vk")
+    p3.add_argument("--out", default="vk.json")
+    p3.add_argument("--device", default="cuda", help=dev_help)
     args = ap.parse_args(argv)
 
-    if args.cmd == "export-vk" or getattr(args, "compress", False) or \
-            getattr(args, "vk", None):
+    if getattr(args, "compress", False):
         sys.exit(f"{args.cmd}: this option is {NOT_PORTED}")
 
-    prover = ChunkProver(device=args.device)
-    if args.cmd == "prove":
-        with open(args.file, "rb") as f:
-            data = f.read()
-        t0 = time.time()
-        root, proof = prover.prove(data, args.chunk, progress=True)
-        dt = time.time() - t0
-        n = proof.ivc_proof.num_steps
-        print(f"root hash: {root.hex()}")
-        print(f"steps: {n}  time: {dt:.2f}s  folds/sec: {n / dt:.3f}")
-        proof.save(args.out)
-        print(f"proof written to {args.out}")
-    else:
+    if args.cmd == "verify":
         expect = bytes.fromhex(args.expect_hash) if args.expect_hash else None
+        # With --vk the prover's circuit is never built.
+        prover = None if args.vk else ChunkProver(device=args.device)
         t0 = time.time()
         proof = ChunkProof.load(args.proof)
-        root = prover.verify(proof, expect)
-        print(f"VERIFIED root hash: {root.hex()}  "
-              f"({time.time() - t0:.2f}s, {proof.ivc_proof.num_steps} steps)")
+        if prover is None:
+            root = verify_with_vk(args.vk, proof, expect, device=args.device)
+        else:
+            root = prover.verify(proof, expect)
+        print(f"VERIFIED{' (vk-only)' if args.vk else ''} root hash: "
+              f"{root.hex()}  ({time.time() - t0:.2f}s, "
+              f"{proof.ivc_proof.num_steps} steps)")
+        return
+
+    prover = ChunkProver(device=args.device)
+    if args.cmd == "export-vk":
+        prover.export_vk(args.out)
+        print(f"verification key written to {args.out}")
+        return
+    with open(args.file, "rb") as f:
+        data = f.read()
+    t0 = time.time()
+    root, proof = prover.prove(data, args.chunk, progress=True)
+    dt = time.time() - t0
+    n = proof.ivc_proof.num_steps
+    print(f"root hash: {root.hex()}")
+    print(f"steps: {n}  time: {dt:.2f}s  folds/sec: {n / dt:.3f}")
+    proof.save(args.out)
+    print(f"proof written to {args.out}")
 
 
 if __name__ == "__main__":

@@ -62,6 +62,9 @@ class IVCProof:
     def num_steps(self) -> int:
         return len(self.steps)
 
+    def z_final(self, io_arity: int) -> List[int]:
+        return self.steps[-1].X[:io_arity]
+
     def to_dict(self) -> dict:
         return {
             "z0": serial.enc_ints(self.z0),
@@ -84,6 +87,13 @@ class IVCProof:
             final_W=serial.enc_ints(d["final_W"]),
             final_E=serial.enc_ints(d["final_E"]),
             pp_digest=int(d["pp_digest"]))
+
+    def save(self, path: str) -> None:
+        serial.dump("ivc_proof", self.to_dict(), path)
+
+    @staticmethod
+    def load(path: str) -> "IVCProof":
+        return IVCProof.from_dict(serial.load("ivc_proof", path))
 
 
 class IVC:

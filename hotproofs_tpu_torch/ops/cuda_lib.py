@@ -131,9 +131,21 @@ launches: Dict[str, int] = {name: 0 for name in (
     "mont_mul_part", "conv_mma")}
 
 
+# `d[k] += 1` is a read, an add and a store, which another thread's launch
+# (parallel/segments.py proves segments in a thread pool) can interleave:
+# the lock keeps every count exact.
+_launch_lock = threading.Lock()
+
+
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    with _launch_lock:
+        for k in launches:
+            launches[k] = 0
+
+
+def count_launch(name: str) -> None:
+    with _launch_lock:
+        launches[name] += 1
 
 
 def check_input(name: str, t: torch.Tensor, shape) -> None:
@@ -166,7 +178,7 @@ def launch(name: str, fn, *args, device: torch.device) -> None:
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         check(fn(*args, ctypes.c_void_p(stream)), name)
-    launches[name] += 1
+    count_launch(name)
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

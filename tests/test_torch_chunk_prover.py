@@ -1,8 +1,11 @@
 """The port's chunk prover: the blake3-chunk pp digest equals the
 reference's, the package imports and proves with jax blocked, the CLI's
-unported options refuse, and (slow) a real 2-block chunk proof is
-byte-equal to the reference's and accepted by its verifier."""
+unported option (--compress) refuses, the reference's real-size proof of a
+2-block chunk (tests/data) reads back byte for byte, and (slow) a live
+2-block chunk proof is byte-equal to the reference's and accepted by its
+verifier."""
 
+import gzip
 import json
 import os
 import pathlib
@@ -13,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from hotproofs_tpu_torch.core import blake3_ref as b3
 from hotproofs_tpu_torch.models import chunk_prover as CP
 
 # pytest-xdist runs several workers on one host: one intra-op thread
@@ -91,9 +95,7 @@ def test_no_jax_import_in_package():
                         or s.startswith("from jax")), f"{path}: {s}"
 
 
-@pytest.mark.parametrize("argv", [["export-vk"],
-                                  ["prove", "--file", "x", "--compress"],
-                                  ["verify", "--proof", "x", "--vk", "v"]])
+@pytest.mark.parametrize("argv", [["prove", "--file", "x", "--compress"]])
 def test_cli_unported_options_exit_nonzero(argv):
     with pytest.raises(SystemExit) as e:
         CP.main(argv)
@@ -129,6 +131,33 @@ def test_designs_tool_times_the_w_batch_prove_many_commits(monkeypatch):
     assert not bool((w[..., 5:] != 0).any())            # all < 2^40
     rand = D.random_scalars(np.random.default_rng(0), 2, 1000, 40, "cpu")
     assert D.nonzero_share(w, 40) < 0.5 < D.nonzero_share(rand, 40)
+
+
+REF_CHUNK2 = REPO / "tests" / "data" / "torch_chunk2_proof_ref.json.gz"
+CHUNK2_DATA = bytes(range(256)) * 4 + bytes(range(100))   # 2 chunks
+
+
+def test_reference_chunk_proof_reads_back_byte_for_byte(tmp_path):
+    """The reference's real-size proof of chunk 1 of CHUNK2_DATA (made by
+    the JAX package's ChunkProver().prove on the CPU) loads into the
+    port's ChunkProof and saves to the same bytes; its statement and final
+    state give the BLAKE3 root. Verifying it needs the full-width key,
+    which the card prepares in seconds (tests/test_torch_cuda_chunk.py)."""
+    ref = gzip.decompress(REF_CHUNK2.read_bytes())
+    path, again = tmp_path / "ref.json", tmp_path / "again.json"
+    path.write_bytes(ref)
+    proof = CP.ChunkProof.load(str(path))
+    proof.save(str(again))
+    assert again.read_bytes() == ref
+    p = CP.ChunkProver(device="cpu")
+    ip = proof.ivc_proof
+    CP.check_statement(p.modulus, ip.z0, ip.num_steps, proof.chunk_idx,
+                       proof.n_blocks, proof.leaf_depth, proof.total_depth)
+    assert (proof.chunk_idx, ip.num_steps) == (1, 3)
+    assert ip.pp_digest == p.ivc.pp_digest
+    assert CP.check_final(ip.z_final(CP.IO_ARITY), proof.n_blocks,
+                          b3.hash_bytes(CHUNK2_DATA)) \
+        == b3.hash_bytes(CHUNK2_DATA)
 
 
 @pytest.mark.slow  # full-width key preparation on the CPU + reference prove
