@@ -59,7 +59,23 @@ exit and no result line:
      msm_merge, msm_wsum and mont_mul must be > 0); last, msm_bucket,
      msm_merge, msm_wsum and mont_mul against their plain versions on the
      inputs of the first MSM and to_mont call of each shape, scalars not
-     all zero, that the segment runs gave them (exact equality).
+     all zero, that the segment runs gave them (exact equality);
+  9. Spartan compression (nova/spartan.py), with the launch counts set to
+     0 before it: the phase-4 prover's SpartanSystem (its matrix tables
+     built on the host or loaded from the disk cache, then laid out on the
+     card), a second one that loads them, compress and verify_compressed
+     of phase 4's proof with the time of each part, the IPA rounds and the
+     sizes of both proof files, four tampers refused (vL, a sum-check
+     evaluation, an IPA L point, a dropped sum-check round), a cached
+     table with a changed digest refused and rebuilt, the CLI's prove
+     --compress and verify, the reference's toy and wide compressed proofs
+     (tests/data) accepted and the port's byte-equal to them, the
+     reference's real-size chunk proof compressed and verified; then the
+     launch counts of setup, compress and verify (every main-path kernel
+     and scale16 and fold2 must be > 0), and scale16 and fold2 against
+     their plain versions on the inputs the compress run gave them, timed
+     beside their bounds, with the card's name and power limit beside
+     every time.
 The last two lines are the kernels' JSON summary (with each kernel's
 bound: the least time the card could take for the work of its timed
 call) and the result line.
@@ -102,11 +118,20 @@ KERNELS = {
     "mont_mul_stage": ("mont.cu", "tools/bench_pallas_bisect.py:45"),
     "mont_mul_part": ("mont.cu", "tools/bench_pallas_parts.py:46"),
     "conv_mma": ("conv_mma.cu", "tools/bench_pallas_parts.py:74"),
+    "scale16": ("points.cu", "hotproofs_tpu/ops/msm.py:62"),
+    "fold2": ("points.cu", "hotproofs_tpu/nova/spartan.py:198"),
 }
 MAIN = ("msm_bucket", "msm_merge", "msm_wsum", "to_affine",
         "mont_mul")                                            # phase 4
 DESIGNS = ("msm_chain", "msm_bucket_tsplit", "msm_bucket_signed")  # phase 6
 FIELD = ("mont_mul", "mont_mul_stage", "mont_mul_part", "conv_mma")  # phase 7
+COMPRESS = ("msm_bucket", "msm_merge", "msm_wsum", "to_affine", "mont_mul",
+            "scale16", "fold2")                                # phase 9
+# Phase 9's fixtures: the reference's IVC and compressed proofs of two toy
+# chains (tests/data, made by the JAX package on the CPU), whose circuits
+# and stack tests/spartan_chains.py holds.
+TESTS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+SPARTAN_CHAINS = ("toy", "wide")
 
 # The bound of a kernel's call: the larger of its bytes (each input read
 # once, each output written once) over the HBM rate and its 32-bit integer
@@ -123,6 +148,7 @@ FIELD = ("mont_mul", "mont_mul_stage", "mont_mul_part", "conv_mma")  # phase 7
 # 3.35 TB/s.
 MUL32_PER_MONT = 2 * (64 + 64) + 8
 MONT_MIXED_ADD, MONT_ADD = 11, 12
+MONT_DOUBLE = 8         # RCB15 Algorithm 9 less its product by 3b
 MONT_AFFINE = 5         # per point, beside one inversion per batch
 IMUL_PER_CLOCK_SM = 64
 HBM_BYTES_PER_S = 3.35e12
@@ -528,6 +554,416 @@ def segments_phase(prover, data, ci, proof, root, dev, note) -> dict:
         require(counts[k] > 0, f"{k} was not launched in phase 8")
     check_captured(seen, dev, note, tag)
     return counts
+
+
+def _wnaf(k: int, w: int):
+    """(length, nonzero digits) of the width-w NAF of k >= 0."""
+    n = nz = 0
+    while k:
+        if k & 1:
+            d = k & ((1 << w) - 1)
+            k -= d - (1 << w) if d >> (w - 1) else d
+            nz += 1
+        k >>= 1
+        n += 1
+    return n, nz
+
+
+def _glv_split(k: int, q: int):
+    """k = k1 + k2 lam mod q with |k1|, |k2| near sqrt(q), lam a cube root
+    of unity mod q (the curve's endomorphism acts on points as lam: one
+    product by a cube root of unity in the base field). Guide to Elliptic
+    Curve Cryptography, Algorithms 3.74 and 3.76."""
+    lam = next(r for r in (pow(g, (q - 1) // 3, q) for g in range(2, 64))
+               if r != 1)
+    # Extended Euclid on (q, lam): r_i = s_i q + t_i lam, up to the first
+    # remainder below sqrt(q).
+    r0, r1, t0, t1 = q, lam, 0, 1
+    while r1 * r1 >= q:
+        c = r0 // r1
+        r0, r1, t0, t1 = r1, r0 - c * r1, t1, t0 - c * t1
+    c = r0 // r1
+    r2, t2 = r0 - c * r1, t0 - c * t1
+    a1, b1 = r1, -t1
+    a2, b2 = min([(r0, -t0), (r2, -t2)], key=lambda v: v[0] ** 2 + v[1] ** 2)
+    det = a1 * b2 - a2 * b1
+    c1 = (2 * b2 * k + det) // (2 * det)
+    c2 = (-2 * b1 * k + det) // (2 * det)
+    k1, k2 = k - c1 * a1 - c2 * a2, -c1 * b1 - c2 * b2
+    assert (k1 + k2 * lam - k) % q == 0
+    return k1, k2
+
+
+def fold2_least(x: int, xi: int, q: int):
+    """Montgomery products of the least method known to us for one pair
+    xi G_lo + x G_hi of fold2 (its bound): each scalar split by the curve's
+    endomorphism into two halves of about 128 bits, all four halves
+    interleaved on one doubling chain as width-w NAFs, w chosen for each
+    base point from this run's scalars; each base's odd multiples cost a
+    doubling and 2^(w-2) - 1 complete adds, and their images under the
+    endomorphism one product each. -> (products, doublings, adds)."""
+    halves = [[abs(v) for v in _glv_split(k % q, q)] for k in (xi, x)]
+    best = None
+    for w1 in range(2, 9):
+        for w2 in range(2, 9):
+            nafs = [_wnaf(v, w) for w, hs in ((w1, halves[0]),
+                                              (w2, halves[1])) for v in hs]
+            pre = [(1 << (w - 2)) - 1 for w in (w1, w2)]
+            dbl = max(n for n, _ in nafs) - 1 + sum(w > 2 for w in (w1, w2))
+            add = sum(nz for _, nz in nafs) - 1 + sum(pre)
+            prod = MONT_DOUBLE * dbl + MONT_ADD * add + sum(pre) + 2
+            if best is None or prod < best[0]:
+                best = (prod, dbl, add)
+    return best
+
+
+@contextlib.contextmanager
+def capturing_points(seen: dict):
+    """While active, keep in seen the inputs of the first fold_points2 call
+    and of the first scale16 call of each point count (phase 9 holds the
+    kernels against their plain versions on them)."""
+    from hotproofs_tpu_torch.ops import msm_pallas as MP
+
+    fold, scale = MP.fold_points2, MP.scale16
+
+    def fold_rec(spec, G, x, xi):
+        seen.setdefault(("fold2",), (spec, G.clone(), x, xi))
+        return fold(spec, G, x, xi)
+
+    def scale_rec(spec, pts, windows):
+        seen.setdefault(("scale16", pts.shape[0]),
+                        (spec, pts.clone(), windows))
+        return scale(spec, pts, windows)
+
+    MP.fold_points2, MP.scale16 = fold_rec, scale_rec
+    try:
+        yield
+    finally:
+        MP.fold_points2, MP.scale16 = fold, scale
+
+
+def ipa_designs(spec, G, x, xi, ck, dev, tag, smi) -> None:
+    """The IPA's group work, round by round, in two designs, timed on
+    point sets of each round's size cut from round 1's generators G: the
+    folding design (fold2 of 2h points, and the J = 2 MSM over them through
+    scale16 and to_affine), and the weighted design, which keeps the key's
+    prepared bases: every round one J = 2 MSM over all n of them with
+    scalars a_lo[i mod n_k] w_i, w_i products of x and x^-1 (two mont_mul
+    a round). The weighted design is not built: only its MSM and field
+    products are timed. Round 1 is the same in both."""
+    from hotproofs_tpu_torch.ops import field as F
+    from hotproofs_tpu_torch.ops import msm_pallas as MP
+
+    fspec_s, n = spec.scalar, G.shape[0]
+    q = fspec_s.p
+    rs = np.random.default_rng(9)
+
+    def scalars(J, m):
+        return torch.from_numpy(np.stack([fspec_s.batch_to_limbs(
+            [int.from_bytes(rs.bytes(32), "little") % q
+             for _ in range(m)]) for _ in range(J)])).to(dev)
+
+    fold_ms, var_ms, k = [], [], n // 2
+    while k >= 1:
+        if k > 1:
+            Gk = G[:2 * k].contiguous()
+            fold_ms.append(cuda_ms(
+                lambda: MP.fold_points2(spec, Gk, x, xi), 2))
+        if k < n // 2:
+            Gv = G[:2 * k].contiguous()
+            sc = scalars(2, 2 * k)
+            sc[0, :k] = 0
+            sc[1, k:] = 0
+            var_ms.append(cuda_ms(lambda: MP.msm_var(
+                spec, sc, MP.var_bases(spec, Gv, 256), 256), 2))
+        k //= 2
+    full = scalars(2, n)
+    wts = F.to_mont(fspec_s, full[0])
+    alt_msm = cuda_ms(lambda: ck.commit_many(full, 256), 3)
+    alt_mul = cuda_ms(lambda: F.mont_mul(fspec_s, wts, wts), 5)
+    rounds_ = len(var_ms)
+    fold_sum = sum(fold_ms) + sum(var_ms)
+    alt_sum = rounds_ * (alt_msm + 2 * alt_mul)
+    say(tag, f"fold2 at each round of one IPA (h = {n // 2} down to 2): "
+        + ", ".join(f"{t:.3f}" for t in fold_ms)
+        + f" ms, sum {sum(fold_ms):.2f} ms (x 3 IPAs: "
+        f"{3 * sum(fold_ms):.1f} ms) [{smi}]")
+    say(tag, f"one IPA's group work after round 1's commit ({rounds_} "
+        f"folds and {rounds_} commits): folding design (fold2, and msm_var "
+        f"over 2h points) {fold_sum:.2f} ms "
+        f"(msm_var " + ", ".join(f"{t:.3f}" for t in var_ms) + " ms); "
+        f"weighted design {rounds_} x (J = 2 MSM over the key's {n} "
+        f"prepared bases {alt_msm:.3f} ms + 2 mont_mul of {n} "
+        f"{alt_mul:.4f} ms) = {alt_sum:.2f} ms [{smi}]")
+
+
+def compression_phase(prover, data, ci, proof, root, dev, note, stats,
+                      bounds, rate, smi) -> dict:
+    """Phase 9: Spartan compression. Setup on the phase-4 prover (the H
+    tables built or loaded, then laid out on the card), compress and
+    verify_compressed of phase 4's proof, four tampers refused, the
+    cache's checks, the CLI's prove --compress and verify, the reference's
+    fixtures (toy and wide: accepted, byte-equal) and its real-size chunk
+    proof compressed and verified; then scale16 and fold2 against their
+    plain versions on the inputs the compress run gave them, timed, with
+    their bounds, and the IPA's two designs timed (ipa_designs). Returns
+    the launch counts of setup, compress and verify (the phase's main
+    path)."""
+    import copy
+    import tempfile
+
+    from hotproofs_tpu_torch.models import chunk_prover as CP
+    from hotproofs_tpu_torch.nova import spartan as SP
+    from hotproofs_tpu_torch.nova.ivc import IVCProof
+    from hotproofs_tpu_torch.ops import msm_pallas as MP
+    from hotproofs_tpu_torch.utils import telemetry as T_
+    from hotproofs_tpu_torch.utils.config import CONFIG
+
+    if TESTS_DIR not in sys.path:
+        sys.path.append(TESTS_DIR)
+    from spartan_chains import load_ref, port_stack
+
+    tag = "9 compress"
+    counter = lambda k: T_.metrics.snapshot().get(k, 0)
+    spec = prover.ivc.curve
+    seen: dict = {}
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+
+    # Setup: the tables of the blake3 circuit, from the disk cache when an
+    # earlier run left them, then on the card.
+    MP.reset_launches()
+    builds = counter("spartan/h_builds")
+    t0 = time.perf_counter()
+    sps = prover.spartan
+    sps.preprocess_H()
+    t_h = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sps.H_bases()
+    torch.cuda.synchronize()
+    t_lay = time.perf_counter() - t0
+    how = "built on the host" if counter("spartan/h_builds") > builds \
+        else "loaded from the cache"
+    nnz = sum(len(x.rows) for x in (sps.shape.A, sps.shape.B, sps.shape.C))
+    say(tag, f"SpartanSystem (m = {sps.m}, nz = {sps.nz}, n_ipa_w = "
+        f"{sps.n_ipa_w}): H tables {how} in {t_h:.2f} s (nnz {nnz}), laid "
+        f"out on the card (scale16, to_affine; {3 * sps.m} points) in "
+        f"{t_lay:.2f} s [{smi}]")
+    loads = counter("spartan/h_loads")
+    t0 = time.perf_counter()
+    again = SP.SpartanSystem(prover.ivc)
+    xs = again.preprocess_H()
+    require(counter("spartan/h_loads") == loads + 1 and all(
+        np.array_equal(a, b) for a, b in zip(xs, sps.preprocess_H())),
+        "a second SpartanSystem did not load the same tables from the cache")
+    say(tag, f"a second SpartanSystem loaded them from the cache in "
+        f"{time.perf_counter() - t0:.2f} s [{smi}]")
+
+    # The main path: compress the 32-fold proof of phase 4, verify it.
+    rounds = counter("spartan/ipa_rounds")
+    t0 = time.perf_counter()
+    with capturing_points(seen):
+        cproof = prover.compress(proof)
+    torch.cuda.synchronize()
+    t_c = time.perf_counter() - t0
+    n_rounds = counter("spartan/ipa_rounds") - rounds
+    say(tag, f"compress chunk {ci} ({cproof.compressed.num_steps} folds): "
+        f"{t_c:.2f} s [{smi}]; " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in sps.timings.items())
+        + f"; {n_rounds} IPA rounds, each a host round trip (L, R read "
+        "back, absorbed, a challenge drawn)")
+    t0 = time.perf_counter()
+    require(prover.verify_compressed(cproof) == root,
+            "verify_compressed returned another root")
+    t_v = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counts = dict(MP.launches)
+    say(tag, f"verify_compressed: {t_v:.2f} s [{smi}]")
+    say(tag, "launches (setup, compress, verify): " + ", ".join(
+        f"{k} {counts[k]}" for k in COMPRESS))
+    for k in COMPRESS:
+        require(counts[k] > 0, f"{k} was not launched in compression")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        full, small = os.path.join(tmp, "p.json"), os.path.join(tmp, "c.json")
+        proof.save(full)
+        cproof.save(small)
+        say(tag, f"proof files: uncompressed {os.path.getsize(full)} bytes, "
+            f"compressed {os.path.getsize(small)} bytes")
+        back = CP.CompressedChunkProof.load(small)
+        require(prover.verify_compressed(back) == root,
+                "the saved compressed proof did not verify")
+
+        def refused(what, change, want):
+            bad = copy.deepcopy(cproof)
+            change(bad.compressed.spartan)
+            try:
+                prover.verify_compressed(bad)
+            except AssertionError as e:
+                require(want in str(e), f"{what}: refused as {e}")
+                say(tag, f"{what}: refused ({e})")
+            else:
+                require(False, f"a compressed proof with {what} verified")
+
+        p = sps.fspec.p
+
+        def bump_ev(sp):
+            sp.sc1_evals[3][1] = (sp.sc1_evals[3][1] + 1) % p
+
+        def bump_L(sp):
+            sp.ipa_W.Ls[5] = sp.ipa_W.Rs[5]
+
+        refused("vL changed",
+                lambda sp: setattr(sp, "vL", (sp.vL + 1) % p),
+                "IPA opening of L failed")
+        refused("one sum-check evaluation changed", bump_ev,
+                "sum-check 1 failed")
+        refused("one IPA L point changed", bump_L, "IPA opening of W failed")
+        refused("a sum-check round dropped",
+                lambda sp: setattr(sp, "sc2_evals", sp.sc2_evals[:-1]),
+                "sum-check 2 round count")
+
+        # The cache refuses a file whose stored digest was changed, and the
+        # table is rebuilt (on the toy circuit: a full rebuild is the H
+        # build's time again).
+        toy_ivc, toy, _ = port_stack("toy", device=dev)
+        toy.preprocess_H()
+        path = SP._h_cache_path(toy.curve, toy.m, toy.pp_digest)
+        with np.load(path) as z:
+            arrs = {k: z[k] for k in z.files}
+        meta = json.loads(str(arrs["meta"]))
+        meta["pp_digest"] = f"{toy.pp_digest ^ 1:064x}"
+        arrs["meta"] = np.asarray(json.dumps(meta))
+        np.savez(path, **arrs)
+        refusals = counter("spartan/h_refused")
+        fresh = SP.SpartanSystem(toy_ivc).preprocess_H()
+        require(counter("spartan/h_refused") == refusals + 1 and all(
+            np.array_equal(a, b) for a, b in zip(fresh, toy.preprocess_H())),
+            "a cached table with a changed digest was not refused and "
+            "rebuilt")
+        say(tag, f"a cached table whose stored digest was changed "
+            f"({os.path.relpath(path, CONFIG.cache_dir)}): refused, rebuilt")
+
+        # The CLI: prove --compress on a small file, then verify.
+        f_in = os.path.join(tmp, "small.bin")
+        small_data = data[:4096]
+        with open(f_in, "wb") as f:
+            f.write(small_data)
+        out = os.path.join(tmp, "cli.json")
+        t0 = time.perf_counter()
+        CP.main(["prove", "--file", f_in, "--chunk", "1", "--out", out,
+                 "--compress"])
+        CP.main(["verify", "--proof", out, "--expect-hash",
+                 _oracle_root(small_data).hex()])
+        with open(out) as f:
+            require(json.load(f)["kind"] == "compressed_chunk_proof",
+                    "prove --compress did not write a compressed proof")
+        say(tag, f"CLI prove --compress (chunk 1 of a 4 KiB file) and "
+            f"verify: {time.perf_counter() - t0:.2f} s [{smi}]")
+
+        # The reference's fixtures on the card: its compressed proof is
+        # accepted and the port's compression of its IVC proof equals it.
+        for name in SPARTAN_CHAINS:
+            d = load_ref(name)
+            sp_sys = toy if name == "toy" else \
+                port_stack(name, device=dev)[1]
+            want = [d["z_final"]]
+            require(sp_sys.verify(SP.CompressedProof.from_dict(
+                d["compressed_proof"]), 1) == want,
+                f"the reference's {name} compressed proof did not verify")
+            mine = sp_sys.compress(IVCProof.from_dict(d["ivc_proof"]), 1)
+            mp_ = os.path.join(tmp, f"{name}.json")
+            mine.save(mp_)
+            with open(mp_) as f:
+                require(f.read() == json.dumps(d["compressed_proof"]),
+                        f"the port's {name} compressed proof differs from "
+                        "the reference's")
+            say(tag, f"{name} fixture (m = {sp_sys.m}, "
+                f"{len(d['compressed_proof']['spartan']['ipa_L']['Ls'])} "
+                "IPA rounds a proof): the reference's compressed proof "
+                "verifies; the port's is byte-equal")
+
+        # The reference's real-size proof of chunk 1 of a 2-chunk file
+        # (phase 8), compressed and verified.
+        ref_path = os.path.join(tmp, "ref.json")
+        with open(ref_path, "wb") as f:
+            f.write(gzip.decompress(open(REF_CHUNK2, "rb").read()))
+        want = _oracle_root(CHUNK2_DATA)
+        t0 = time.perf_counter()
+        rc = prover.compress(CP.ChunkProof.load(ref_path))
+        require(prover.verify_compressed(rc, want) == want,
+                "the reference's chunk proof, compressed, did not verify")
+        say(tag, f"the reference's real-size chunk proof: compressed and "
+            f"verified in {time.perf_counter() - t0:.2f} s [{smi}]")
+
+    # scale16 and fold2 against their plain versions on what the compress
+    # run gave them: the first fold (round 1 of the L opening: the key's
+    # 2h generators), and scale16 on the key's generators where the commit
+    # of L prepared them and on round 2's 2h folded ones, at 64 windows and
+    # at 10.
+    def affine(w):
+        x, y = MP.to_affine_words_plain(
+            spec, *(w[:, c].contiguous() for c in range(3)))
+        return torch.stack([x, y])
+
+    fspec, G, x, xi = seen[("fold2",)]
+    h = G.shape[0] // 2
+    got = MP.fold_points2(fspec, G, x, xi)
+    t0 = time.perf_counter()
+    want = MP.fold_points2_plain(fspec, G, x, xi)
+    torch.cuda.synchronize()
+    fold_plain = (time.perf_counter() - t0) * 1e3
+    note("fold2", affine(got), affine(want))
+    ms = cuda_ms(lambda: MP.fold_points2(fspec, G, x, xi), 5)
+    stats["fold2"]["ms"], stats["fold2"]["plain_ms"] = ms, fold_plain
+    q = spec.scalar.p
+    bits = [((xi % q) >> i & 1, (x % q) >> i & 1) for i in range(256)]
+    top = max(i for i, b in enumerate(bits) if any(b))
+    own = MONT_DOUBLE * (top + 1) + MONT_ADD * (
+        sum(1 for b in bits[:top + 1] if any(b)) + 1)
+    least, dbl, adds = fold2_least(x, xi, q)
+    bounds["fold2"] = bound(h * least, nbytes(G, got), rate)
+    say(tag, f"fold2 == plain (affine) on round 1's {G.shape[0]} "
+        f"generators (h = {h}): {ms:.3f} ms (plain {fold_plain:.1f} ms, "
+        f"bound {bounds['fold2'][0]:.4f} ms by {bounds['fold2'][1]}: "
+        f"{least} products a pair, {dbl} doublings and {adds} complete "
+        f"adds, against the kernel's binary Shamir's {own}) [{smi}]")
+
+    ipa_designs(spec, G, x, xi, prover.ivc.ck, dev, tag, smi)
+
+    ck_n = prover.ivc.ck.n
+    half = sps.nz // 2
+    require(("scale16", half) in seen,
+            "compress made no scale16 call on round 2's generators")
+    runs = [(half, 10), (half, 64)]
+    if ("scale16", ck_n) in seen:
+        runs.insert(0, (ck_n, 64))
+    for n, windows in runs:
+        sspec, pts, _ = seen[("scale16", n)]
+        what = "the key's generators (the commit of L)" if n == ck_n \
+            else "round 2's folded generators"
+        got = MP.scale16(sspec, pts, windows)
+        t0 = time.perf_counter()
+        want = MP.scale16_plain(sspec, pts, windows)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        note("scale16", got, want)
+        cut = min(got.shape[0] * n, 1 << 16)     # plain inversions: a slice
+        note("scale16", affine(got.reshape(-1, 3, 8)[:cut]),
+             affine(want.reshape(-1, 3, 8)[:cut]))
+        ms = cuda_ms(lambda: MP.scale16(sspec, pts, windows), 5)
+        bnd = bound(n * MONT_DOUBLE * 4 * (windows - 1), nbytes(pts, got),
+                    rate)
+        say(tag, f"scale16 == plain (projective and affine) on {what}, "
+            f"{n} points at W4 = {windows}: {ms:.3f} ms (plain "
+            f"{plain_ms:.1f} ms, bound {bnd[0]:.4f} ms by {bnd[1]}) [{smi}]")
+        if n == half and windows == 64:
+            stats["scale16"]["ms"], stats["scale16"]["plain_ms"] = \
+                ms, plain_ms
+            bounds["scale16"] = bnd
+    say(tag, f"phase {time.perf_counter() - t_phase:.1f} s [{smi}]; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return {k: counts[k] for k in ("scale16", "fold2")}
 
 
 def field_phase(prover, dev, rng, note, stats, bounds) -> dict:
@@ -941,6 +1377,10 @@ def main() -> int:
 
     # -- 8. vk and segments --------------------------------------------------
     segments_phase(prover, data, ci, proof, root, dev, note)
+
+    # -- 9. Spartan compression ----------------------------------------------
+    counts.update(compression_phase(prover, data, ci, proof, root, dev, note,
+                                    stats, bounds, rate, smi))
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": CSRC + src,

@@ -9,6 +9,7 @@
 
 #include "mont.cuh"
 #include "msm_designs.cuh"
+#include "points.cuh"
 
 using namespace hp;
 
@@ -272,6 +273,29 @@ void hc_mont_mul_part(const u32* fconsts, const int* a, const int* b,
   FieldConsts f = load_field_consts(fconsts);
   for (long long i = 0; i < n; ++i)
     part_elem(f, a, b, out, (size_t)n, (size_t)i, part);
+}
+
+// The variable-base kernels (points.cuh), one call per point: scale16
+// (pts (n, 3, 8) -> out (W4, n, 3, 8)) and fold2 (scalars: x^-1 then x,
+// 8 words each; G (2h, 3, 8) -> out (h, 3, 8)), with the launcher's own
+// top bit.
+void hc_scale16(const u32* consts, const u32* pts, u32* out, long long n,
+                int windows) {
+  Consts c = load_consts(consts);
+  for (long long i = 0; i < n; ++i)
+    scale16_point(c, pts, out, n, i, windows);
+}
+
+void hc_fold2(const u32* consts, const u32* scalars, const u32* G, u32* out,
+              long long h) {
+  Consts c = load_consts(consts);
+  Scalar xi, x;
+  for (int k = 0; k < NW; ++k) {
+    xi.w[k] = scalars[k];
+    x.w[k] = scalars[NW + k];
+  }
+  const int top = top_bit2(xi, x);
+  for (long long i = 0; i < h; ++i) fold2_point(c, xi, x, top, G, out, h, i);
 }
 
 }  // extern "C"

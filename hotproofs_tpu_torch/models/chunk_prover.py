@@ -1,6 +1,6 @@
 """Prove and verify possession of a BLAKE3 chunk by Nova folding (port of
 hotproofs_tpu/models/chunk_prover.py: prove, prove_many, verify, the
-verification key, segmented proofs, the CLI).
+verification key, segmented proofs, compressed proofs, the CLI).
 
 One step per 64-byte block of the chunk plus one per Merkle level; the
 verifier recomputes the root hash from the final state z[2:10]. Proofs and
@@ -8,7 +8,7 @@ verification keys are the reference's JSON formats, byte for byte.
 
 Usage (CLI):
     python -m hotproofs_tpu_torch.models.chunk_prover prove --file F \
-        --chunk 0 --out proof.json [--device cuda|cpu]
+        --chunk 0 --out proof.json [--compress] [--device cuda|cpu]
     python -m hotproofs_tpu_torch.models.chunk_prover verify \
         --proof proof.json --expect-hash HEX [--vk vk.json] \
         [--device cuda|cpu]
@@ -19,7 +19,6 @@ Usage (CLI):
 from __future__ import annotations
 
 import argparse
-import sys
 import time
 from dataclasses import dataclass
 from functools import lru_cache
@@ -36,6 +35,7 @@ from ..nova import serial
 from ..nova.ivc import IVC, IVCProof, check
 from ..nova.pedersen import CommitmentKey
 from ..nova.r1cs import ShapeDevice
+from ..nova.spartan import CompressedProof, SpartanSystem
 from ..nova.vk import export_vk, ivc_from_vk
 from ..ops import curve as C
 from ..ops import field as F
@@ -44,7 +44,6 @@ from ..parallel.segments import (SegmentedProof, prove_segments,
 from ..utils.config import require_device
 
 IO_ARITY = nova_circ.IO_ARITY
-NOT_PORTED = "not ported yet, see ROADMAP.md"
 
 
 def _big_witness_indices(layout, n_io: int) -> np.ndarray:
@@ -100,6 +99,37 @@ class ChunkProof:
         d = serial.load("chunk_proof", path)
         return ChunkProof(
             ivc_proof=IVCProof.from_dict(d["ivc_proof"]),
+            chunk_idx=int(d["chunk_idx"]), n_blocks=int(d["n_blocks"]),
+            leaf_depth=int(d["leaf_depth"]),
+            total_depth=int(d["total_depth"]))
+
+
+@dataclass
+class CompressedChunkProof:
+    """Succinct proof + public statement: the chain's per-step instances
+    plus a Spartan argument, no accumulator witness vectors
+    (nova/spartan.py)."""
+
+    compressed: CompressedProof
+    chunk_idx: int
+    n_blocks: int
+    leaf_depth: int
+    total_depth: int
+
+    def save(self, path: str) -> None:
+        serial.dump("compressed_chunk_proof", {
+            "compressed": self.compressed.to_dict(),
+            "chunk_idx": int(self.chunk_idx),
+            "n_blocks": int(self.n_blocks),
+            "leaf_depth": int(self.leaf_depth),
+            "total_depth": int(self.total_depth),
+        }, path)
+
+    @staticmethod
+    def load(path: str) -> "CompressedChunkProof":
+        d = serial.load("compressed_chunk_proof", path)
+        return CompressedChunkProof(
+            compressed=CompressedProof.from_dict(d["compressed"]),
             chunk_idx=int(d["chunk_idx"]), n_blocks=int(d["n_blocks"]),
             leaf_depth=int(d["leaf_depth"]),
             total_depth=int(d["total_depth"]))
@@ -205,6 +235,7 @@ class ChunkProver:
         self.device = require_device(device)
         self.ivc, self.layout, self.modulus = _build_stack(
             curve, depth_bits, str(self.device))
+        self._spartan: Optional[SpartanSystem] = None
 
     @staticmethod
     def _hash_with_path(data: bytes, chunk_idx: int):
@@ -304,6 +335,24 @@ class ChunkProver:
             segmented=seg, chunk_idx=chunk_idx, n_blocks=sched.n_blocks,
             leaf_depth=sched.leaf_depth, total_depth=proof_data.total_depth)
 
+    @property
+    def spartan(self) -> SpartanSystem:
+        """The Spartan compression system of this circuit and key, built on
+        first use (its matrix tables come from the disk cache when it holds
+        them for this pp digest)."""
+        if self._spartan is None:
+            self._spartan = SpartanSystem(self.ivc)
+        return self._spartan
+
+    def compress(self, proof: ChunkProof) -> CompressedChunkProof:
+        """Compress a chunk proof: drop the accumulator witness, attach the
+        Spartan argument."""
+        cp = self.spartan.compress(proof.ivc_proof, io_arity=IO_ARITY)
+        return CompressedChunkProof(
+            compressed=cp, chunk_idx=proof.chunk_idx,
+            n_blocks=proof.n_blocks, leaf_depth=proof.leaf_depth,
+            total_depth=proof.total_depth)
+
     def export_vk(self, path: str) -> None:
         """Write the standalone verification key (nova/vk.py): anyone can
         then verify chunk proofs with verify_with_vk or `verify --vk`."""
@@ -318,6 +367,17 @@ class ChunkProver:
                         proof.n_blocks, proof.leaf_depth, proof.total_depth)
         return _proof_root(self.ivc.verify(proof.ivc_proof,
                                            io_arity=IO_ARITY),
+                           proof, expected_hash)
+
+    def verify_compressed(self, proof: CompressedChunkProof,
+                          expected_hash: Optional[bytes] = None) -> bytes:
+        """Verify a compressed chunk proof (the instance folds, the Spartan
+        argument, the statement); returns the proven root."""
+        check_statement(self.modulus, proof.compressed.chain.z0,
+                        proof.compressed.num_steps, proof.chunk_idx,
+                        proof.n_blocks, proof.leaf_depth, proof.total_depth)
+        return _proof_root(self.spartan.verify(proof.compressed,
+                                               io_arity=IO_ARITY),
                            proof, expected_hash)
 
     def verify_segmented(self, proof: SegmentedChunkProof,
@@ -340,7 +400,7 @@ def main(argv=None):
     p1.add_argument("--chunk", type=int, default=0)
     p1.add_argument("--out", default="proof.json")
     p1.add_argument("--compress", action="store_true",
-                    help=f"compressed proof (Spartan): {NOT_PORTED}")
+                    help="write a succinct compressed proof (Spartan + IPA)")
     p1.add_argument("--device", default="cuda", help=dev_help)
     p2 = sub.add_parser("verify")
     p2.add_argument("--proof", required=True)
@@ -354,22 +414,26 @@ def main(argv=None):
     p3.add_argument("--device", default="cuda", help=dev_help)
     args = ap.parse_args(argv)
 
-    if getattr(args, "compress", False):
-        sys.exit(f"{args.cmd}: this option is {NOT_PORTED}")
-
     if args.cmd == "verify":
         expect = bytes.fromhex(args.expect_hash) if args.expect_hash else None
         # With --vk the prover's circuit is never built.
         prover = None if args.vk else ChunkProver(device=args.device)
         t0 = time.time()
-        proof = ChunkProof.load(args.proof)
-        if prover is None:
-            root = verify_with_vk(args.vk, proof, expect, device=args.device)
+        try:
+            proof = ChunkProof.load(args.proof)
+        except ValueError:      # not a chunk proof: a compressed one?
+            if prover is None:
+                raise
+            proof = CompressedChunkProof.load(args.proof)
+        if isinstance(proof, CompressedChunkProof):
+            root = prover.verify_compressed(proof, expect)
+            n = proof.compressed.num_steps
         else:
-            root = prover.verify(proof, expect)
+            root = prover.verify(proof, expect) if prover else \
+                verify_with_vk(args.vk, proof, expect, device=args.device)
+            n = proof.ivc_proof.num_steps
         print(f"VERIFIED{' (vk-only)' if args.vk else ''} root hash: "
-              f"{root.hex()}  ({time.time() - t0:.2f}s, "
-              f"{proof.ivc_proof.num_steps} steps)")
+              f"{root.hex()}  ({time.time() - t0:.2f}s, {n} steps)")
         return
 
     prover = ChunkProver(device=args.device)
@@ -385,7 +449,12 @@ def main(argv=None):
     n = proof.ivc_proof.num_steps
     print(f"root hash: {root.hex()}")
     print(f"steps: {n}  time: {dt:.2f}s  folds/sec: {n / dt:.3f}")
-    proof.save(args.out)
+    if args.compress:
+        t0 = time.time()
+        prover.compress(proof).save(args.out)
+        print(f"compressed in {time.time() - t0:.2f}s")
+    else:
+        proof.save(args.out)
     print(f"proof written to {args.out}")
 
 

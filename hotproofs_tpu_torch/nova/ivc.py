@@ -1,5 +1,6 @@
 """IVC driver: fold a chain of step instances, verify the chain (port of
-hotproofs_tpu/nova/ivc.py: prove_batch, prove_lockstep and verify).
+hotproofs_tpu/nova/ivc.py: prove_batch, prove_lockstep, verify and
+fold_instances_only).
 
 Same proof format (nova/serial.py, shared), same pp digest and the same
 Fiat-Shamir absorb order as the reference, so a proof from either package
@@ -311,18 +312,18 @@ class IVC:
                 for c in range(K)]
 
     # -- verification ---------------------------------------------------------
-    def verify(self, proof: IVCProof, io_arity: int) -> List[int]:
-        """Full verification; returns z_final on success, raises
-        AssertionError on failure. Replays the transcript and the instance
-        folds, checks IO chaining, the openings of the final W and E, and
-        relaxed-R1CS satisfaction of the folded instance."""
+    def fold_instances_only(self, proof: IVCProof,
+                            io_arity: int) -> NF.AccumulatorInstance:
+        """Replay the transcript and the instance folds of a proof, checking
+        its pp digest, step count and IO chaining, without the final
+        witness openings: the folded instance that verify opens, and that
+        a compressed proof (nova/spartan.py) proves instead of shipping
+        final_W and final_E."""
         shape, spec, curve = self.shape, self.shape.field, self.curve
         n_io = shape.n_io
         check(proof.pp_digest == self.pp_digest, "pp digest mismatch")
         check(proof.num_steps >= 1, "empty proof")
         check(len(proof.comm_Ts) == proof.num_steps, "comm_T count mismatch")
-        check(len(proof.final_W) == shape.n_wit, "final W length")
-        check(len(proof.final_E) == shape.n_cons, "final E length")
 
         tr = self._new_transcript(proof.z0)
         acc_inst = NF.AccumulatorInstance(u=0, X=[0] * n_io)
@@ -336,6 +337,17 @@ class IVC:
                                      comm_T)
             acc_inst = NF.fold_instance(spec, curve, acc_inst, step.X,
                                         step.comm_W, comm_T, r)
+        return acc_inst
+
+    def verify(self, proof: IVCProof, io_arity: int) -> List[int]:
+        """Full verification; returns z_final on success, raises
+        AssertionError on failure. Replays the transcript and the instance
+        folds (fold_instances_only), checks the openings of the final W and
+        E, and relaxed-R1CS satisfaction of the folded instance."""
+        shape, spec = self.shape, self.shape.field
+        acc_inst = self.fold_instances_only(proof, io_arity)
+        check(len(proof.final_W) == shape.n_wit, "final W length")
+        check(len(proof.final_E) == shape.n_cons, "final E length")
 
         self.prepare_key()
         W_canon = F.from_ints(spec, proof.final_W, self.device)

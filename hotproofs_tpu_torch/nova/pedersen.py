@@ -3,9 +3,10 @@
 Keys are the reference's deterministic generator vectors (same derivation),
 cached as the port's own `.cache/torch_gens_*.npy`. Commit(v) = sum_i v_i G_i
 through the MSM chain of ops/msm_pallas.py over bases pre-scaled by 16^w:
-`scaled_affine` doubles the generators in plain torch on the key's device
-and converts them to affine with the to_affine kernel, once per key; the
-result is cached on disk under the port's own `torch_scaledaff_*` names.
+`scaled_affine` doubles the generators (the scale16 kernel on the card, its
+plain version on the CPU) and converts them to affine with the to_affine
+kernel, once per key prefix; the result is cached on disk under the port's
+own `torch_scaledaff_*` names.
 The kernel layouts of those bases (time-major, and the lane-major copy the
 bucket kernel reads) are made once per key prefix and kept on the key.
 

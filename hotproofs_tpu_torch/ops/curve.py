@@ -182,6 +182,24 @@ def h_pt_select(mask: torch.Tensor, p, q):
     return tuple(torch.where(mask[..., None], a, b) for a, b in zip(p, q))
 
 
+def h_pt_scalar_mul(spec: CurveSpec, scalars: torch.Tensor, p):
+    """Double-and-add over the 256 bits of (..., 32) canonical digit
+    scalars, MSB first (the reference's pt_scalar_mul, ops/curve.py:178):
+    each step doubles, adds p and keeps the sum where the bit is set.
+    Steps above the batch's highest set bit double the identity into
+    itself, so they are skipped."""
+    bits = torch.stack([(scalars >> k) & 1 for k in range(8)],
+                       dim=-1).flatten(-2).bool()          # (..., 256) LSB
+    live = bits.flatten(0, -2).any(0) if bits.dim() > 1 else bits
+    nz = live.nonzero()
+    acc = h_identity(spec, scalars.shape[:-1], scalars.device)
+    top = int(nz.max()) if nz.numel() else -1
+    for i in range(top, -1, -1):
+        acc = h_pt_double(spec, acc)
+        acc = h_pt_select(bits[..., i], h_pt_add(spec, acc, p), acc)
+    return acc
+
+
 def _h(pt):
     return tuple(F.to_h16(c) for c in pt)
 
@@ -208,6 +226,12 @@ def pt_double(spec: CurveSpec, p: Point) -> Point:
 
 def pt_select(mask: torch.Tensor, p: Point, q: Point) -> Point:
     return h_pt_select(mask, p, q)
+
+
+def pt_scalar_mul(spec: CurveSpec, scalars: torch.Tensor, p: Point) -> Point:
+    """k * P for (..., 32) canonical digit scalars k (plain torch; the plain
+    version of the fold2 kernel, ops/msm_pallas.py: fold_points2)."""
+    return _d(h_pt_scalar_mul(spec, scalars, _h(p)))
 
 
 def pt_neg(spec: CurveSpec, p: Point) -> Point:

@@ -29,12 +29,25 @@ K1, each followed by K2 and K3 over its own slot count S:
   msm_bucket_signed  (replaces bucket_signed_call,
                       tools/exp_signed_msm.py:65)
 
-The kernels are CUDA C++ in csrc/msm.cu and csrc/msm_designs.cu (what
-bounds each and how it is laid out is noted there). Beside each wrapper is
-its plain torch version, the same per-lane algorithm in the same order, so
-the two agree bit for bit in projective form, and a launch count. A
-wrapper takes the plain version only for a tensor on the CPU; for a CUDA
-tensor it launches the kernel or raises.
+Bases that are not a key's (Spartan's IPA rounds fold their generators,
+and its matrix tables are points of their own) come through msm_var, with
+two kernels of csrc/points.cu:
+
+  K5 scale16  (replaces the reference's scale_points16, ops/msm.py:62: the
+               windows 16^w P of projective points, one thread a point;
+               scale_points16, the key preparation, goes through it too)
+  K6 fold2    (replaces the IPA's generator fold, nova/spartan.py:198-201:
+               x^-1 G_lo + x G_hi by Shamir's trick, one thread a pair)
+
+then K4 to_affine and K1-K3; a base at the identity gets the scalar 0.
+
+The kernels are CUDA C++ in csrc/msm.cu, csrc/msm_designs.cu and
+csrc/points.cu (what bounds each and how it is laid out is noted there).
+Beside each wrapper is its plain torch version, the same per-lane
+algorithm in the same order, so the two agree bit for bit in projective
+form (fold2: as affine points), and a launch count. A wrapper takes the
+plain version only for a tensor on the CPU; for a CUDA tensor it launches
+the kernel or raises.
 
 What bounds the two kernels of the chain that do the work, and what their
 design does about it:
@@ -74,7 +87,7 @@ axis, H * n_lanes lanes), 8 for the signed digits and 1 for the chain.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -158,17 +171,25 @@ def bases_tm(xa: torch.Tensor, ya: torch.Tensor, m: int, max_bits: int,
     windows) -> (B, 2, 8, n_lanes) kernel layout of plan(m, max_bits, b).
     Padding points are zero; their digits are always 0, so no kernel ever
     reads them."""
+    w4 = n_windows4(max_bits)
+    return _bases_tm_words(F.digits_to_words(xa[:w4, :m]),
+                           F.digits_to_words(ya[:w4, :m]), m, max_bits, b)
+
+
+def _bases_tm_words(xw: torch.Tensor, yw: torch.Tensor, m: int,
+                    max_bits: int, b: Optional[int] = None) -> torch.Tensor:
+    """bases_tm on affine (W4', m, 8) words."""
     b, lpw, w4, n_lanes = plan(m, max_bits, b)
 
     def one(a):
-        w = F.digits_to_words(a[:w4, :m])                  # (W4, m, 8)
+        w = a[:w4, :m]                                     # (W4, m, 8)
         pad = lpw * b - m
         if pad:
             w = torch.nn.functional.pad(w, (0, 0, 0, pad))
         return w.reshape(w4, lpw, b, NW).permute(2, 3, 0, 1).reshape(
             b, NW, n_lanes)
 
-    return torch.stack([one(xa), one(ya)], dim=1).contiguous()
+    return torch.stack([one(xw), one(yw)], dim=1).contiguous()
 
 
 def lane_major(bases: torch.Tensor) -> torch.Tensor:
@@ -502,16 +523,121 @@ def msm_many(spec: C.CurveSpec, scalars: torch.Tensor, bases: torch.Tensor,
 def scale_points16(spec: C.CurveSpec, points: C.Point,
                    windows: int) -> C.Point:
     """(m, 32) x3 projective Montgomery points -> (W4, m, 32) x3 holding
-    16^w * P (plain torch: 4 doublings per window)."""
-    pt = tuple(F.to_h16(c) for c in points)
-    out: List[Tuple] = []
+    16^w * P (through scale16)."""
+    s = scale16(spec, point_words(points), windows)
+    return tuple(F.words_to_digits(s[:, :, c]) for c in range(3))
+
+
+# ---------------------------------------------------------------------------
+# Variable bases (csrc/points.cu): scale16 and fold2, and the MSM over
+# projective points that are not the key's (nova/spartan.py's IPA rounds
+# and preprocessed tables).
+# ---------------------------------------------------------------------------
+
+
+def point_words(points: C.Point) -> torch.Tensor:
+    """(n, 32) x3 projective Montgomery digits -> (n, 3, 8) words."""
+    return torch.stack([F.digits_to_words(c) for c in points],
+                       dim=-2).contiguous()
+
+
+def words_point(w: torch.Tensor) -> C.Point:
+    """(..., 3, 8) words -> (..., 32) x3 projective Montgomery digits."""
+    return tuple(F.words_to_digits(w[..., c, :]) for c in range(3))
+
+
+def scale16_plain(spec: C.CurveSpec, pts: torch.Tensor,
+                  windows: int) -> torch.Tensor:
+    """Plain torch version of scale16: 4 complete doublings a window."""
+    pt = tuple(F.words_to_h16(pts[:, c]) for c in range(3))
+    out = []
     for w in range(windows):
-        out.append(pt)
+        out.append(_proj_words(pt))
         if w + 1 < windows:
             for _ in range(RADIX_BITS):
                 pt = C.h_pt_double(spec, pt)
-    return tuple(F.from_h16(torch.stack([o[c] for o in out]))
-                 for c in range(3))
+    return torch.stack(out)
+
+
+def scale16(spec: C.CurveSpec, pts: torch.Tensor,
+            windows: int) -> torch.Tensor:
+    """(n, 3, 8) projective Montgomery words -> (W4, n, 3, 8) holding
+    16^w * P_i at [w, i], W4 = windows (one thread a point, csrc/points.cu).
+    The identity stays the identity."""
+    n = pts.shape[0]
+    _check_input("scale16 points", pts, (n, 3, NW))
+    if not _on_cuda("scale16", pts):
+        return scale16_plain(spec, pts, windows)
+    out = torch.empty((windows, n, 3, NW), dtype=torch.int32,
+                      device=pts.device)
+    if n and windows:
+        _launch("scale16", lib().hp_scale16, _consts_arg(spec), _ptr(pts),
+                _ptr(out), n, windows, device=pts.device)
+    return out
+
+
+def fold_points2_plain(spec: C.CurveSpec, G: torch.Tensor, x: int,
+                       xi: int) -> torch.Tensor:
+    """Plain torch version of fold2: xi * G_lo and x * G_hi by the
+    reference's double-and-add (ops/curve.py: h_pt_scalar_mul, one call
+    over both halves), then a complete add."""
+    h = G.shape[0] // 2
+    f = spec.scalar
+    k = torch.from_numpy(f.batch_to_limbs([xi % f.p] * h + [x % f.p] * h))
+    pts = tuple(F.words_to_h16(G[:, c]) for c in range(3))
+    m = C.h_pt_scalar_mul(spec, k.to(G.device), pts)
+    return _proj_words(C.h_pt_add(spec, tuple(c[:h] for c in m),
+                                  tuple(c[h:] for c in m))).contiguous()
+
+
+def fold_points2(spec: C.CurveSpec, G: torch.Tensor, x: int,
+                 xi: int) -> torch.Tensor:
+    """The IPA's generator fold (kernel fold2, csrc/points.cu): (2h, 3, 8)
+    projective words -> (h, 3, 8), G'_i = xi * G_i + x * G_{h+i} for
+    scalar-field ints x and xi (x's inverse in the IPA). Affine equal to
+    the plain version; projective coordinates may differ."""
+    n = G.shape[0]
+    _check_input("fold2 points", G, (n, 3, NW))
+    if n % 2:
+        raise ValueError(f"fold2: {n} points, want an even count")
+    if not _on_cuda("fold2", G):
+        return fold_points2_plain(spec, G, x, xi)
+    h = n // 2
+    out = torch.empty((h, 3, NW), dtype=torch.int32, device=G.device)
+    if h:
+        f = spec.scalar
+        words = [((v % f.p) >> (32 * i)) & 0xFFFFFFFF
+                 for v in (xi, x) for i in range(NW)]
+        sc = (ctypes.c_uint32 * len(words))(*words)
+        _launch("fold2", lib().hp_fold2, _consts_arg(spec), sc, _ptr(G),
+                _ptr(out), h, device=G.device)
+    return out
+
+
+def var_bases(spec: C.CurveSpec, pts: torch.Tensor, max_bits: int):
+    """MSM bases of plan(m, max_bits) for (m, 3, 8) projective words:
+    scale16, to_affine on words, bases_tm. -> (bases, live): live (m,) is
+    False where a point is the identity (Z = 0); its affine base comes out
+    (0, 0), and msm_var gives it the scalar 0, as bases_tm's padding, so
+    no mixed add ever reads it."""
+    m = pts.shape[0]
+    w4 = n_windows4(max_bits)
+    s = scale16(spec, pts, w4)
+    xa, ya = to_affine_words(spec, *(s[:, :, c].reshape(-1, NW).contiguous()
+                                     for c in range(3)))
+    live = (pts[:, 2] != 0).any(-1)
+    return (_bases_tm_words(xa.reshape(w4, m, NW), ya.reshape(w4, m, NW),
+                            m, max_bits), live)
+
+
+def msm_var(spec: C.CurveSpec, scalars: torch.Tensor, kept,
+            max_bits: int) -> C.Point:
+    """J MSMs over points that are not the key's: (J, m, 32) canonical
+    scalars over kept = var_bases(spec, points, max_bits) -> projective
+    Montgomery (J, 32) x3. An identity point gets the scalar 0."""
+    bases, live = kept
+    sc = scalars * live[None, :, None].to(scalars.dtype)
+    return msm_many(spec, sc, bases, live.shape[0], max_bits)
 
 
 def scaled_affine_host(spec: C.CurveSpec, gens: list, w4: int):

@@ -1,6 +1,8 @@
 """The chunk prover on the card: the verification key through the CLI,
-segments, and the reference's real-size proof (verified, and equal to the
-port's proof of the same chunk byte for byte).
+segments, the reference's real-size proof (verified, and equal to the
+port's proof of the same chunk byte for byte), and compressed proofs (the
+CLI's prove --compress, the reference's chunk proof compressed, the
+reference's Spartan fixtures byte-equal).
 
 Marked `cuda`: without a CUDA device each test skips (the decision is made
 inside the fixture, never at import). On a machine with the card:
@@ -77,3 +79,55 @@ def test_reference_chunk_proof_verifies_and_equals_the_port_proof(prover,
     assert got == root
     proof.save(str(tmp_path / "port.json"))
     assert (tmp_path / "port.json").read_bytes() == ref
+
+
+def test_cli_prove_compress_and_verify(prover, tmp_path, capsys):
+    """prove --compress writes a compressed chunk proof; verify falls back
+    to it; a wrong expected root is refused."""
+    f = tmp_path / "data.bin"
+    f.write_bytes(DATA)
+    out = tmp_path / "cp.json"
+    before = (MP.launches["scale16"], MP.launches["fold2"])
+    CP.main(["prove", "--file", str(f), "--chunk", "1", "--out", str(out),
+             "--compress"])
+    assert MP.launches["scale16"] > before[0]
+    assert MP.launches["fold2"] > before[1]
+    assert json.loads(out.read_text())["kind"] == "compressed_chunk_proof"
+    root = b3.hash_bytes(DATA)
+    capsys.readouterr()
+    CP.main(["verify", "--proof", str(out), "--expect-hash", root.hex()])
+    assert f"VERIFIED root hash: {root.hex()}" in capsys.readouterr().out
+    with pytest.raises(AssertionError, match="root hash mismatch"):
+        CP.main(["verify", "--proof", str(out), "--expect-hash",
+                 bytes(32).hex()])
+
+
+def test_reference_chunk_proof_compresses_and_verifies(prover, tmp_path):
+    path = tmp_path / "ref.json"
+    path.write_bytes(gzip.decompress(REF.read_bytes()))
+    cp = prover.compress(CP.ChunkProof.load(str(path)))
+    root = b3.hash_bytes(DATA)
+    assert prover.verify_compressed(cp, root) == root
+    cp.compressed.spartan.vL = (cp.compressed.spartan.vL + 1) % \
+        prover.modulus
+    with pytest.raises(AssertionError, match="IPA opening of L failed"):
+        prover.verify_compressed(cp, root)
+
+
+@pytest.mark.parametrize("name", ["toy", "wide"])
+def test_spartan_fixture_on_the_card(prover, name, tmp_path):
+    """The reference's compressed proofs of tests/spartan_chains.py's
+    chains verify on the card, and the port's compression of the same IVC
+    proofs equals them byte for byte."""
+    from spartan_chains import load_ref, port_stack
+    from hotproofs_tpu_torch.nova import spartan as SP
+    from hotproofs_tpu_torch.nova.ivc import IVCProof
+
+    ivc, sps, _ = port_stack(name, device="cuda")
+    d = load_ref(name)
+    assert sps.verify(SP.CompressedProof.from_dict(d["compressed_proof"]),
+                      io_arity=1) == [d["z_final"]]
+    cp = sps.compress(IVCProof.from_dict(d["ivc_proof"]), io_arity=1)
+    cp.save(str(tmp_path / "cp.json"))
+    assert (tmp_path / "cp.json").read_text() == \
+        json.dumps(d["compressed_proof"])

@@ -160,6 +160,61 @@ def test_design_kernels_vs_plain_and_host(dev, key, bits):
     assert sums(bk) == want
 
 
+@pytest.mark.parametrize("n,windows", [(1, 64), (37, 10), (300, 64)])
+def test_scale16_kernel_vs_plain(dev, n, windows):
+    """scale16 == its plain version bit for bit (the same doublings), the
+    identity kept."""
+    pts = [C.host_scalar_mul(SPEC, 3 + 7 * i, SPEC.gen) for i in range(n)]
+    pts[n // 2] = None
+    P = MP.point_words(C.affine_to_mont(SPEC, pts, dev))
+    before = MP.launches["scale16"]
+    got = MP.scale16(SPEC, P, windows)
+    assert MP.launches["scale16"] == before + 1
+    assert torch.equal(got, MP.scale16_plain(SPEC, P, windows))
+    assert not bool(got[:, n // 2, 2].any())
+
+
+def test_fold2_kernel_vs_plain_and_host(dev):
+    """fold2 == its plain version and the host as affine points, with an
+    identity on either side and a pair that cancels."""
+    f = SPEC.scalar
+    lo = [C.host_scalar_mul(SPEC, 5 + i, SPEC.gen) for i in range(200)]
+    hi = [C.host_scalar_mul(SPEC, 999 + 3 * i, SPEC.gen) for i in range(200)]
+    lo[1], hi[2] = None, None
+    hi[3] = (lo[3][0], (-lo[3][1]) % SPEC.base.p)
+    G = MP.point_words(C.affine_to_mont(SPEC, lo + hi, dev))
+    x = 0x1234567890ABCDEF1234567890ABCDEF % f.p
+    xi = pow(x, -1, f.p)
+    before = MP.launches["fold2"]
+    got = C.pt_to_affine_host(SPEC, MP.words_point(
+        MP.fold_points2(SPEC, G, x, xi)))
+    assert MP.launches["fold2"] == before + 1
+    assert got == C.pt_to_affine_host(SPEC, MP.words_point(
+        MP.fold_points2_plain(SPEC, G, x, xi)))
+    assert got == [C.host_add(SPEC, C.host_scalar_mul(SPEC, xi, a),
+                              C.host_scalar_mul(SPEC, x, b))
+                   for a, b in zip(lo, hi)]
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 8, 16, 1000])
+def test_msm_var_on_the_card_vs_host(dev, m):
+    """msm_var (scale16, to_affine, the MSM chain) over points with an
+    identity among them == the host MSM, at the IPA's small sizes and at
+    one large."""
+    rng = np.random.default_rng(m)
+    pts = [C.host_scalar_mul(SPEC, 1 + int(rng.integers(1 << 40)),
+                             SPEC.gen) for _ in range(m)]
+    pts[m // 2] = None
+    ks = [[int.from_bytes(rng.bytes(32), "little") % SPEC.scalar.p
+           for _ in range(m)] for _ in range(2)]
+    sc = torch.from_numpy(np.stack([SPEC.scalar.batch_to_limbs(k)
+                                    for k in ks])).to(dev)
+    kept = MP.var_bases(SPEC, MP.point_words(C.affine_to_mont(SPEC, pts,
+                                                               dev)), 256)
+    got = C.pt_to_affine_host(SPEC, MP.msm_var(SPEC, sc, kept, 256))
+    assert got == [C.host_msm(SPEC, k, pts) for k in ks]
+
+
 def test_wrappers_reject_bad_inputs(dev):
     d = torch.zeros((1, 8, 4), dtype=torch.int64, device=dev)
     bases = torch.zeros((8, 2, 8, 4), dtype=torch.int32, device=dev)
