@@ -61,21 +61,25 @@ exit and no result line:
      inputs of the first MSM and to_mont call of each shape, scalars not
      all zero, that the segment runs gave them (exact equality);
   9. Spartan compression (nova/spartan.py), with the launch counts set to
-     0 before it: the phase-4 prover's SpartanSystem (its matrix tables
-     built on the host or loaded from the disk cache, then laid out on the
-     card), a second one that loads them, compress and verify_compressed
-     of phase 4's proof with the time of each part, the IPA rounds and the
-     sizes of both proof files, four tampers refused (vL, a sum-check
-     evaluation, an IPA L point, a dropped sum-check round), a cached
-     table with a changed digest refused and rebuilt, the CLI's prove
-     --compress and verify, the reference's toy and wide compressed proofs
-     (tests/data) accepted and the port's byte-equal to them, the
-     reference's real-size chunk proof compressed and verified; then the
-     launch counts of setup, compress and verify (every main-path kernel
-     and scale16 and fold2 must be > 0), and scale16 and fold2 against
-     their plain versions on the inputs the compress run gave them, timed
-     beside their bounds, with the card's name and power limit beside
-     every time.
+     0 before it: the phase-4 prover's SpartanSystem set up (its matrix
+     tables built on the host or loaded from the disk cache, then laid out
+     on the card with the key's bases at the IPAs' lengths), a second one
+     that loads the tables, compress and verify_compressed of phase 4's
+     proof with the time of each part, the IPA rounds and the sizes of
+     both proof files, four tampers refused (vL, a sum-check evaluation,
+     an IPA L point, a dropped sum-check round), a cached table with a
+     changed digest refused and rebuilt, the CLI's prove --compress and
+     verify, the reference's toy and wide compressed proofs (tests/data)
+     accepted and the port's byte-equal to them, the reference's real-size
+     chunk proof compressed and verified; then the launch counts of setup,
+     compress and verify (every main-path kernel and scale16 must be > 0;
+     after setup, compress and verify must launch no scale16 and no
+     to_affine, and msm_bucket once per IPA round and once for the
+     commitment to L), scale16 against its plain version on the inputs
+     setup gave it, timed beside its bound, and each round of the first
+     IPA (its J = 2 commit over the key's prepared bases beside the MSM's
+     bound, and its two mont_mul) timed on the scalars the compress gave
+     it, with the card's name and power limit beside every time.
 The last two lines are the kernels' JSON summary (with each kernel's
 bound: the least time the card could take for the work of its timed
 call) and the result line.
@@ -119,14 +123,13 @@ KERNELS = {
     "mont_mul_part": ("mont.cu", "tools/bench_pallas_parts.py:46"),
     "conv_mma": ("conv_mma.cu", "tools/bench_pallas_parts.py:74"),
     "scale16": ("points.cu", "hotproofs_tpu/ops/msm.py:62"),
-    "fold2": ("points.cu", "hotproofs_tpu/nova/spartan.py:198"),
 }
 MAIN = ("msm_bucket", "msm_merge", "msm_wsum", "to_affine",
         "mont_mul")                                            # phase 4
 DESIGNS = ("msm_chain", "msm_bucket_tsplit", "msm_bucket_signed")  # phase 6
 FIELD = ("mont_mul", "mont_mul_stage", "mont_mul_part", "conv_mma")  # phase 7
 COMPRESS = ("msm_bucket", "msm_merge", "msm_wsum", "to_affine", "mont_mul",
-            "scale16", "fold2")                                # phase 9
+            "scale16")                                         # phase 9
 # Phase 9's fixtures: the reference's IVC and compressed proofs of two toy
 # chains (tests/data, made by the JAX package on the CPU), whose circuits
 # and stack tests/spartan_chains.py holds.
@@ -141,14 +144,22 @@ SPARTAN_CHAINS = ("toy", "wide")
 # add needs 11 full products and a complete add 12 (csrc/curve.cuh does 2
 # more, by the constant 3b = 15, which a few modular additions can do);
 # to_affine needs 5 products a point (Montgomery's batch inversion, 3,
-# then x and y) plus one Fermat inversion for the batch. The rate is the
-# CUDA C++ Programming Guide's throughput of 32-bit integer multiply(-add)
-# for compute capability 9.0, 64 per clock per SM, at the SM's maximum
-# clock that nvidia-smi reports; the memory rate is the H100 SXM's
-# 3.35 TB/s.
+# then x and y) plus one Fermat inversion for the batch. A squaring needs
+# only the 36 distinct word products of its operand (2 x 36 multiplies)
+# beside the same reduction. On these curves (a = 0) the least doubling is
+# the Jacobian one, 2 products and 5 squarings (dbl-2009-l), with no case
+# for the identity; a point it leaves in Jacobian form reaches the
+# homogeneous form to_affine reads with x Z and Z^3: 2 products here, the
+# squaring of Z left out, which keeps the count at or under the least.
+# The rate is the CUDA C++ Programming Guide's throughput of 32-bit integer
+# multiply(-add) for compute capability 9.0, 64 per clock per SM, at the
+# SM's maximum clock that nvidia-smi reports; the memory rate is the H100
+# SXM's 3.35 TB/s.
 MUL32_PER_MONT = 2 * (64 + 64) + 8
+MUL32_PER_SQUARE = 2 * (36 + 64) + 8
 MONT_MIXED_ADD, MONT_ADD = 11, 12
-MONT_DOUBLE = 8         # RCB15 Algorithm 9 less its product by 3b
+MONT_DOUBLE = 2 + 5 * MUL32_PER_SQUARE / MUL32_PER_MONT   # in products
+MONT_TO_HOMOGENEOUS = 2     # a Jacobian point's x Z and Z^3 (Z^2 left out)
 MONT_AFFINE = 5         # per point, beside one inversion per batch
 IMUL_PER_CLOCK_SM = 64
 HBM_BYTES_PER_S = 3.35e12
@@ -556,145 +567,64 @@ def segments_phase(prover, data, ci, proof, root, dev, note) -> dict:
     return counts
 
 
-def _wnaf(k: int, w: int):
-    """(length, nonzero digits) of the width-w NAF of k >= 0."""
-    n = nz = 0
-    while k:
-        if k & 1:
-            d = k & ((1 << w) - 1)
-            k -= d - (1 << w) if d >> (w - 1) else d
-            nz += 1
-        k >>= 1
-        n += 1
-    return n, nz
-
-
-def _glv_split(k: int, q: int):
-    """k = k1 + k2 lam mod q with |k1|, |k2| near sqrt(q), lam a cube root
-    of unity mod q (the curve's endomorphism acts on points as lam: one
-    product by a cube root of unity in the base field). Guide to Elliptic
-    Curve Cryptography, Algorithms 3.74 and 3.76."""
-    lam = next(r for r in (pow(g, (q - 1) // 3, q) for g in range(2, 64))
-               if r != 1)
-    # Extended Euclid on (q, lam): r_i = s_i q + t_i lam, up to the first
-    # remainder below sqrt(q).
-    r0, r1, t0, t1 = q, lam, 0, 1
-    while r1 * r1 >= q:
-        c = r0 // r1
-        r0, r1, t0, t1 = r1, r0 - c * r1, t1, t0 - c * t1
-    c = r0 // r1
-    r2, t2 = r0 - c * r1, t0 - c * t1
-    a1, b1 = r1, -t1
-    a2, b2 = min([(r0, -t0), (r2, -t2)], key=lambda v: v[0] ** 2 + v[1] ** 2)
-    det = a1 * b2 - a2 * b1
-    c1 = (2 * b2 * k + det) // (2 * det)
-    c2 = (-2 * b1 * k + det) // (2 * det)
-    k1, k2 = k - c1 * a1 - c2 * a2, -c1 * b1 - c2 * b2
-    assert (k1 + k2 * lam - k) % q == 0
-    return k1, k2
-
-
-def fold2_least(x: int, xi: int, q: int):
-    """Montgomery products of the least method known to us for one pair
-    xi G_lo + x G_hi of fold2 (its bound): each scalar split by the curve's
-    endomorphism into two halves of about 128 bits, all four halves
-    interleaved on one doubling chain as width-w NAFs, w chosen for each
-    base point from this run's scalars; each base's odd multiples cost a
-    doubling and 2^(w-2) - 1 complete adds, and their images under the
-    endomorphism one product each. -> (products, doublings, adds)."""
-    halves = [[abs(v) for v in _glv_split(k % q, q)] for k in (xi, x)]
-    best = None
-    for w1 in range(2, 9):
-        for w2 in range(2, 9):
-            nafs = [_wnaf(v, w) for w, hs in ((w1, halves[0]),
-                                              (w2, halves[1])) for v in hs]
-            pre = [(1 << (w - 2)) - 1 for w in (w1, w2)]
-            dbl = max(n for n, _ in nafs) - 1 + sum(w > 2 for w in (w1, w2))
-            add = sum(nz for _, nz in nafs) - 1 + sum(pre)
-            prod = MONT_DOUBLE * dbl + MONT_ADD * add + sum(pre) + 2
-            if best is None or prod < best[0]:
-                best = (prod, dbl, add)
-    return best
-
-
 @contextlib.contextmanager
-def capturing_points(seen: dict):
-    """While active, keep in seen the inputs of the first fold_points2 call
-    and of the first scale16 call of each point count (phase 9 holds the
-    kernels against their plain versions on them)."""
+def capturing_compress(seen: dict, ck):
+    """While active, keep in seen the inputs of the first scale16 call of
+    each point count, and in seen["ipa"] the scalars of every J = 2 commit
+    over ck, in order (the IPA rounds)."""
     from hotproofs_tpu_torch.ops import msm_pallas as MP
 
-    fold, scale = MP.fold_points2, MP.scale16
-
-    def fold_rec(spec, G, x, xi):
-        seen.setdefault(("fold2",), (spec, G.clone(), x, xi))
-        return fold(spec, G, x, xi)
+    scale, commit_many = MP.scale16, ck.commit_many
 
     def scale_rec(spec, pts, windows):
         seen.setdefault(("scale16", pts.shape[0]),
                         (spec, pts.clone(), windows))
         return scale(spec, pts, windows)
 
-    MP.fold_points2, MP.scale16 = fold_rec, scale_rec
+    def commit_rec(scalars, max_bits=256):
+        if scalars.shape[0] == 2:
+            seen.setdefault("ipa", []).append(scalars.clone())
+        return commit_many(scalars, max_bits)
+
+    MP.scale16, ck.commit_many = scale_rec, commit_rec
     try:
         yield
     finally:
-        MP.fold_points2, MP.scale16 = fold, scale
+        MP.scale16 = scale
+        del ck.commit_many          # the class's method again
 
 
-def ipa_designs(spec, G, x, xi, ck, dev, tag, smi) -> None:
-    """The IPA's group work, round by round, in two designs, timed on
-    point sets of each round's size cut from round 1's generators G: the
-    folding design (fold2 of 2h points, and the J = 2 MSM over them through
-    scale16 and to_affine), and the weighted design, which keeps the key's
-    prepared bases: every round one J = 2 MSM over all n of them with
-    scalars a_lo[i mod n_k] w_i, w_i products of x and x^-1 (two mont_mul
-    a round). The weighted design is not built: only its MSM and field
-    products are timed. Round 1 is the same in both."""
+def ipa_rounds(spec, ck, rounds, tag, smi, rate) -> None:
+    """One IPA's rounds timed on the card, replayed on the scalars its
+    compress gave them: each round's J = 2 commit over the key's prepared
+    bases (CUDA events, mean of 3 after one) and its two mont_mul at the
+    round's shape (mean of 5). The commit's bound counts a mixed add for
+    each nonzero digit only, as comm_T's does."""
     from hotproofs_tpu_torch.ops import field as F
     from hotproofs_tpu_torch.ops import msm_pallas as MP
 
-    fspec_s, n = spec.scalar, G.shape[0]
-    q = fspec_s.p
-    rs = np.random.default_rng(9)
-
-    def scalars(J, m):
-        return torch.from_numpy(np.stack([fspec_s.batch_to_limbs(
-            [int.from_bytes(rs.bytes(32), "little") % q
-             for _ in range(m)]) for _ in range(J)])).to(dev)
-
-    fold_ms, var_ms, k = [], [], n // 2
-    while k >= 1:
-        if k > 1:
-            Gk = G[:2 * k].contiguous()
-            fold_ms.append(cuda_ms(
-                lambda: MP.fold_points2(spec, Gk, x, xi), 2))
-        if k < n // 2:
-            Gv = G[:2 * k].contiguous()
-            sc = scalars(2, 2 * k)
-            sc[0, :k] = 0
-            sc[1, k:] = 0
-            var_ms.append(cuda_ms(lambda: MP.msm_var(
-                spec, sc, MP.var_bases(spec, Gv, 256), 256), 2))
-        k //= 2
-    full = scalars(2, n)
-    wts = F.to_mont(fspec_s, full[0])
-    alt_msm = cuda_ms(lambda: ck.commit_many(full, 256), 3)
-    alt_mul = cuda_ms(lambda: F.mont_mul(fspec_s, wts, wts), 5)
-    rounds_ = len(var_ms)
-    fold_sum = sum(fold_ms) + sum(var_ms)
-    alt_sum = rounds_ * (alt_msm + 2 * alt_mul)
-    say(tag, f"fold2 at each round of one IPA (h = {n // 2} down to 2): "
-        + ", ".join(f"{t:.3f}" for t in fold_ms)
-        + f" ms, sum {sum(fold_ms):.2f} ms (x 3 IPAs: "
-        f"{3 * sum(fold_ms):.1f} ms) [{smi}]")
-    say(tag, f"one IPA's group work after round 1's commit ({rounds_} "
-        f"folds and {rounds_} commits): folding design (fold2, and msm_var "
-        f"over 2h points) {fold_sum:.2f} ms "
-        f"(msm_var " + ", ".join(f"{t:.3f}" for t in var_ms) + " ms); "
-        f"weighted design {rounds_} x (J = 2 MSM over the key's {n} "
-        f"prepared bases {alt_msm:.3f} ms + 2 mont_mul of {n} "
-        f"{alt_mul:.4f} ms) = {alt_sum:.2f} ms [{smi}]")
+    fs = spec.scalar
+    total = bound_sum = 0.0
+    for k, sc in enumerate(rounds):
+        m = sc.shape[1]
+        b, lpw, w4, _ = MP.plan(m, 256)
+        live = int((MP.digits_tm(sc, m, b, lpw, w4) != 0).sum())
+        nonzero = int(sc.any(-1).sum())
+        bnd = bound(MONT_MIXED_ADD * live,
+                    nbytes(sc, ck.bases_lm(m, 256)) + 2 * 3 * 8 * 4, rate)
+        ck.commit_many(sc, 256)
+        msm = cuda_ms(lambda: ck.commit_many(sc, 256), 3)
+        mul = cuda_ms(lambda: F.mont_mul(fs, sc[0], sc[1]), 5)
+        total += msm + 2 * mul
+        bound_sum += bnd[0]
+        say(tag, f"IPA round {k + 1} (n_k = {m >> k}): J = 2 commit over the "
+            f"key's {m} prepared bases {msm:.3f} ms (bound {bnd[0]:.4f} ms "
+            f"by {bnd[1]}: {live} of {2 * m * w4} digits nonzero, "
+            f"{nonzero} of {2 * m} scalars), 2 mont_mul of {m} "
+            f"{2 * mul:.4f} ms [{smi}]")
+    say(tag, f"one IPA's {len(rounds)} rounds: {total:.2f} ms of commits "
+        f"and mont_mul (x 3 IPAs: {3 * total:.1f} ms); the commits' bounds "
+        f"sum to {bound_sum:.3f} ms [{smi}]")
 
 
 def compression_phase(prover, data, ci, proof, root, dev, note, stats,
@@ -704,11 +634,12 @@ def compression_phase(prover, data, ci, proof, root, dev, note, stats,
     verify_compressed of phase 4's proof, four tampers refused, the
     cache's checks, the CLI's prove --compress and verify, the reference's
     fixtures (toy and wide: accepted, byte-equal) and its real-size chunk
-    proof compressed and verified; then scale16 and fold2 against their
-    plain versions on the inputs the compress run gave them, timed, with
-    their bounds, and the IPA's two designs timed (ipa_designs). Returns
-    the launch counts of setup, compress and verify (the phase's main
-    path)."""
+    proof compressed and verified; then scale16 against its plain version
+    on the inputs setup gave it, timed, with its bound, and the first IPA's
+    rounds timed (ipa_rounds). Requires that compress and verify after
+    setup launch no scale16 and no to_affine, and msm_bucket once per IPA
+    round and once for the commitment to L. Returns the launch counts of
+    setup, compress and verify (the phase's main path)."""
     import copy
     import tempfile
 
@@ -726,12 +657,14 @@ def compression_phase(prover, data, ci, proof, root, dev, note, stats,
     tag = "9 compress"
     counter = lambda k: T_.metrics.snapshot().get(k, 0)
     spec = prover.ivc.curve
+    ck = prover.ivc.ck
     seen: dict = {}
     torch.cuda.reset_peak_memory_stats()
     t_phase = time.perf_counter()
 
     # Setup: the tables of the blake3 circuit, from the disk cache when an
-    # earlier run left them, then on the card.
+    # earlier run left them, then on the card with the key's bases at the
+    # IPAs' lengths.
     MP.reset_launches()
     builds = counter("spartan/h_builds")
     t0 = time.perf_counter()
@@ -739,16 +672,19 @@ def compression_phase(prover, data, ci, proof, root, dev, note, stats,
     sps.preprocess_H()
     t_h = time.perf_counter() - t0
     t0 = time.perf_counter()
-    sps.H_bases()
+    with capturing_compress(seen, ck):
+        sps.setup()
     torch.cuda.synchronize()
     t_lay = time.perf_counter() - t0
+    set_up = dict(MP.launches)
     how = "built on the host" if counter("spartan/h_builds") > builds \
         else "loaded from the cache"
     nnz = sum(len(x.rows) for x in (sps.shape.A, sps.shape.B, sps.shape.C))
     say(tag, f"SpartanSystem (m = {sps.m}, nz = {sps.nz}, n_ipa_w = "
-        f"{sps.n_ipa_w}): H tables {how} in {t_h:.2f} s (nnz {nnz}), laid "
-        f"out on the card (scale16, to_affine; {3 * sps.m} points) in "
-        f"{t_lay:.2f} s [{smi}]")
+        f"{sps.n_ipa_w}): H tables {how} in {t_h:.2f} s (nnz {nnz}); setup "
+        f"(the tables' {3 * sps.m} points and the key's bases at the IPAs' "
+        f"lengths on the card) in {t_lay:.2f} s, scale16 "
+        f"{set_up['scale16']}, to_affine {set_up['to_affine']} [{smi}]")
     loads = counter("spartan/h_loads")
     t0 = time.perf_counter()
     again = SP.SpartanSystem(prover.ivc)
@@ -762,11 +698,12 @@ def compression_phase(prover, data, ci, proof, root, dev, note, stats,
     # The main path: compress the 32-fold proof of phase 4, verify it.
     rounds = counter("spartan/ipa_rounds")
     t0 = time.perf_counter()
-    with capturing_points(seen):
+    with capturing_compress(seen, ck):
         cproof = prover.compress(proof)
     torch.cuda.synchronize()
     t_c = time.perf_counter() - t0
     n_rounds = counter("spartan/ipa_rounds") - rounds
+    buckets = MP.launches["msm_bucket"] - set_up["msm_bucket"]
     say(tag, f"compress chunk {ci} ({cproof.compressed.num_steps} folds): "
         f"{t_c:.2f} s [{smi}]; " + ", ".join(
             f"{k} {v:.3f} s" for k, v in sps.timings.items())
@@ -783,6 +720,18 @@ def compression_phase(prover, data, ci, proof, root, dev, note, stats,
         f"{k} {counts[k]}" for k in COMPRESS))
     for k in COMPRESS:
         require(counts[k] > 0, f"{k} was not launched in compression")
+    for k in ("scale16", "to_affine"):
+        require(counts[k] == set_up[k], f"compress and verify after setup "
+                f"launched {k} {counts[k] - set_up[k]} times: the IPA must "
+                "commit over the key's prepared bases")
+    require(buckets == n_rounds + 1 and len(seen["ipa"]) == n_rounds,
+            f"compress launched msm_bucket {buckets} times and made "
+            f"{len(seen['ipa'])} J = 2 commits for {n_rounds} IPA rounds "
+            "and the commitment to L")
+    say(tag, f"after setup: compress launched msm_bucket {buckets} times "
+        f"({n_rounds} IPA rounds, each one J = 2 commit over the key's "
+        "prepared bases, and the commitment to L); compress and verify "
+        "launched no scale16 and no to_affine")
 
     with tempfile.TemporaryDirectory() as tmp:
         full, small = os.path.join(tmp, "p.json"), os.path.join(tmp, "c.json")
@@ -896,52 +845,20 @@ def compression_phase(prover, data, ci, proof, root, dev, note, stats,
         say(tag, f"the reference's real-size chunk proof: compressed and "
             f"verified in {time.perf_counter() - t0:.2f} s [{smi}]")
 
-    # scale16 and fold2 against their plain versions on what the compress
-    # run gave them: the first fold (round 1 of the L opening: the key's
-    # 2h generators), and scale16 on the key's generators where the commit
-    # of L prepared them and on round 2's 2h folded ones, at 64 windows and
-    # at 10.
+    # scale16 against its plain version on what setup gave it: the tables'
+    # points, and the key's generators where setup prepared them.
     def affine(w):
         x, y = MP.to_affine_words_plain(
             spec, *(w[:, c].contiguous() for c in range(3)))
         return torch.stack([x, y])
 
-    fspec, G, x, xi = seen[("fold2",)]
-    h = G.shape[0] // 2
-    got = MP.fold_points2(fspec, G, x, xi)
-    t0 = time.perf_counter()
-    want = MP.fold_points2_plain(fspec, G, x, xi)
-    torch.cuda.synchronize()
-    fold_plain = (time.perf_counter() - t0) * 1e3
-    note("fold2", affine(got), affine(want))
-    ms = cuda_ms(lambda: MP.fold_points2(fspec, G, x, xi), 5)
-    stats["fold2"]["ms"], stats["fold2"]["plain_ms"] = ms, fold_plain
-    q = spec.scalar.p
-    bits = [((xi % q) >> i & 1, (x % q) >> i & 1) for i in range(256)]
-    top = max(i for i, b in enumerate(bits) if any(b))
-    own = MONT_DOUBLE * (top + 1) + MONT_ADD * (
-        sum(1 for b in bits[:top + 1] if any(b)) + 1)
-    least, dbl, adds = fold2_least(x, xi, q)
-    bounds["fold2"] = bound(h * least, nbytes(G, got), rate)
-    say(tag, f"fold2 == plain (affine) on round 1's {G.shape[0]} "
-        f"generators (h = {h}): {ms:.3f} ms (plain {fold_plain:.1f} ms, "
-        f"bound {bounds['fold2'][0]:.4f} ms by {bounds['fold2'][1]}: "
-        f"{least} products a pair, {dbl} doublings and {adds} complete "
-        f"adds, against the kernel's binary Shamir's {own}) [{smi}]")
-
-    ipa_designs(spec, G, x, xi, prover.ivc.ck, dev, tag, smi)
-
-    ck_n = prover.ivc.ck.n
-    half = sps.nz // 2
-    require(("scale16", half) in seen,
-            "compress made no scale16 call on round 2's generators")
-    runs = [(half, 10), (half, 64)]
-    if ("scale16", ck_n) in seen:
-        runs.insert(0, (ck_n, 64))
-    for n, windows in runs:
-        sspec, pts, _ = seen[("scale16", n)]
-        what = "the key's generators (the commit of L)" if n == ck_n \
-            else "round 2's folded generators"
+    n_tab = 3 * sps.m
+    require(("scale16", n_tab) in seen,
+            "setup made no scale16 call on the tables' points")
+    runs = [n for n in (ck.n, n_tab) if ("scale16", n) in seen]
+    for n in runs:
+        sspec, pts, windows = seen[("scale16", n)]
+        what = "the key's generators" if n == ck.n else "the tables' points"
         got = MP.scale16(sspec, pts, windows)
         t0 = time.perf_counter()
         want = MP.scale16_plain(sspec, pts, windows)
@@ -952,18 +869,27 @@ def compression_phase(prover, data, ci, proof, root, dev, note, stats,
         note("scale16", affine(got.reshape(-1, 3, 8)[:cut]),
              affine(want.reshape(-1, 3, 8)[:cut]))
         ms = cuda_ms(lambda: MP.scale16(sspec, pts, windows), 5)
-        bnd = bound(n * MONT_DOUBLE * 4 * (windows - 1), nbytes(pts, got),
-                    rate)
+        # The identity (Z = 0) needs no work: only the other points count.
+        live = int((pts[:, 2] != 0).any(-1).sum())
+        steps = windows - 1
+        bnd = bound(live * steps * (4 * MONT_DOUBLE + MONT_TO_HOMOGENEOUS),
+                    nbytes(pts, got), rate)
         say(tag, f"scale16 == plain (projective and affine) on {what}, "
-            f"{n} points at W4 = {windows}: {ms:.3f} ms (plain "
-            f"{plain_ms:.1f} ms, bound {bnd[0]:.4f} ms by {bnd[1]}) [{smi}]")
-        if n == half and windows == 64:
+            f"{n} points ({live} not the identity) at W4 = {windows}: "
+            f"{ms:.3f} ms (plain {plain_ms:.1f} ms, bound {bnd[0]:.4f} ms "
+            f"by {bnd[1]}: {4 * steps} Jacobian doublings and {steps} "
+            f"conversions a point) [{smi}]")
+        if n == n_tab:
             stats["scale16"]["ms"], stats["scale16"]["plain_ms"] = \
                 ms, plain_ms
             bounds["scale16"] = bnd
+        del got, want
+
+    ipa_rounds(spec, ck, seen["ipa"][:sps.nz.bit_length() - 1], tag, smi,
+               rate)
     say(tag, f"phase {time.perf_counter() - t_phase:.1f} s [{smi}]; peak "
         f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return {k: counts[k] for k in ("scale16", "fold2")}
+    return {"scale16": counts["scale16"]}
 
 
 def field_phase(prover, dev, rng, note, stats, bounds) -> dict:

@@ -19,13 +19,14 @@ proves that the folded instance (u, X, comm_W, comm_E) is satisfied:
 
 On the device: the sum-check rounds are plain torch over ops/field.py's
 add and sub and the mont_mul kernel (the four or three evaluation points of
-a round as one stacked call); the IPA's first round commits over the key's
-own prepared bases (pedersen.py), every later round over its folded
-generators through ops/msm_pallas.msm_var (the scale16 kernel, to_affine
-and the MSM chain), and folds them with the fold2 kernel. Each IPA round
-reads L and R back to the host for the transcript. The H tables are built
-on the host (the native curve helper) once per pp digest and cached on
-disk, then scaled onto the device once per SpartanSystem.
+a round as one stacked call); the IPA never folds its generators: every
+round commits L and R by one J = 2 MSM over the key's own prepared bases
+(pedersen.py) with the scalars weighted by the products of the challenges
+that the fold would have applied (_IPA.prove_weighted), and one mont_mul
+updates the weights. Each IPA round reads L and R back to the host for the
+transcript. The H tables are built on the host (the native curve helper)
+once per pp digest and cached on disk, then scaled onto the device once
+per SpartanSystem (setup() prepares them and the key's bases).
 """
 
 from __future__ import annotations
@@ -156,6 +157,21 @@ class _IPA:
 
     def prove(self, tr: Transcript, n: int, a_mont: torch.Tensor,
               b_mont: torch.Tensor, P_aff: Affine, v: int) -> IPAProof:
+        return self.prove_weighted(tr, n, a_mont, b_mont, P_aff, v)[0]
+
+    def prove_weighted(self, tr: Transcript, n: int, a_mont: torch.Tensor,
+                       b_mont: torch.Tensor, P_aff: Affine, v: int
+                       ) -> Tuple[IPAProof, torch.Tensor]:
+        """prove, and the final weights w as (n, 32) canonical digits: the
+        verifier's folded generator is sum_i w_i G_i.
+
+        The generators are never folded. After k folds to n_k = n / 2^k,
+        generator j is G^(k)_j = sum over i = j mod n_k of w_i G_i, w_i the
+        product of x_t^-1 (where i mod n_t fell in the low half at round t)
+        and x_t (the high half). So each round's L = <a_lo, G_hi> and
+        R = <a_hi, G_lo> are one J = 2 MSM over the key's first n prepared
+        bases, with the scalar a[(i + h) mod n_k] w_i on the half each
+        takes and 0 on the other."""
         cv, fs = self.curve, self.fspec
         p = fs.p
         dev = a_mont.device
@@ -165,20 +181,22 @@ class _IPA:
                              f"{b_mont.shape[0]} elements, want n = {n}, "
                              "a power of two")
         a, b = a_mont, b_mont
-        G = None    # the key's first n generators until the first fold
+        i = torch.arange(n, device=dev)
+        w = F.from_ints(fs, [1], dev).expand(n, F.N_LIMBS)
         Ls: List[Affine] = []
         Rs: List[Affine] = []
-        while n > 1:
-            h = n // 2
+        while a.shape[0] > 1:
+            nk = a.shape[0]
+            h = nk // 2
             cross = _modsum(fs, F.mont_mul(fs, a, torch.cat([b[h:], b[:h]])
                                            ).reshape(2, h, F.N_LIMBS), dim=1)
-            a_can = F.from_mont(fs, a)
-            sc = torch.zeros((2, n, F.N_LIMBS), dtype=torch.int32,
-                             device=dev)
-            sc[0, h:] = a_can[:h]      # L: a_lo over G_hi
-            sc[1, :h] = a_can[h:]      # R: a_hi over G_lo
-            pt = (self.ck.commit_many(sc, 256) if G is None
-                  else MP.msm_var(cv, sc, MP.var_bases(cv, G, 256), 256))
+            j = i & (nk - 1)
+            low = (j < h)[:, None]
+            # Montgomery a times canonical w: canonical a[j ^ h] w_i.
+            t = F.mont_mul(fs, a[j ^ h], w)
+            sc = torch.stack([t * ~low,    # L: a_lo over G_hi
+                              t * low])    # R: a_hi over G_lo
+            pt = self.ck.commit_many(sc, 256)
             cl, cr = F.to_ints(fs, cross, mont=True)
             L_msm, R_msm = C.pt_to_affine_host(cv, pt)
             L_aff = C.host_add(cv, L_msm, C.host_scalar_mul(cv, cl, Uc_aff))
@@ -192,16 +210,12 @@ class _IPA:
                       F.mont_mul(fs, xim, a[h:]))
             b = F.add(fs, F.mont_mul(fs, xim, b[:h]),
                       F.mont_mul(fs, xm, b[h:]))
-            if h > 1:    # the last round's folded generator is unused
-                if G is None:
-                    G = MP.point_words(tuple(c[:n] for c in self.ck.points))
-                G = MP.fold_points2(cv, G, x, xi)
+            w = F.mont_mul(fs, w, torch.where(low, xim, xm))
             Ls.append(L_aff)
             Rs.append(R_aff)
             T_.count("spartan/ipa_rounds")
-            n = h
         a_final = F.to_ints(fs, a, mont=True)[0]
-        return IPAProof(Ls=Ls, Rs=Rs, a_final=a_final)
+        return IPAProof(Ls=Ls, Rs=Rs, a_final=a_final), w
 
     def verify(self, tr: Transcript, n: int, b_mont: torch.Tensor,
                P_aff: Affine, v: int, proof: IPAProof) -> bool:
@@ -477,6 +491,15 @@ class SpartanSystem:
                                   torch.where(live, one, zero)))
             self._H_bases = MP.var_bases(self.curve, pts, 256)
         return self._H_bases
+
+    def setup(self) -> None:
+        """Prepare on the device what compress and verify read: the tables'
+        bases and the key's prepared bases at each IPA length (the largest
+        first, so the others are its prefixes). scale16 and to_affine run
+        here and in no later compress or verify."""
+        self.H_bases()
+        for n in sorted({self.nz, self.n_ipa_w, self.n_ipa_e}, reverse=True):
+            self.ck.bases_lm(n, 256)
 
     def _com_L(self, eq_rx: List[int], cA: int, cB: int, cC: int) -> Affine:
         """Verifier-side commitment to the L vector, computed WITHOUT the

@@ -109,7 +109,6 @@ def lib() -> ctypes.CDLL:
                 "hp_mont_mul_part": [P, P, P, P, LL, I, P],
                 "hp_conv_mma": [P, P, P, LL, P],
                 "hp_scale16": [P, P, P, LL, I, P],
-                "hp_fold2": [P, P, P, P, LL, P],
             }.items():
                 fn = getattr(handle, name)
                 fn.argtypes = args
@@ -131,7 +130,7 @@ def check(err: int, name: str) -> None:
 launches: Dict[str, int] = {name: 0 for name in (
     "msm_bucket", "msm_merge", "msm_wsum", "to_affine", "msm_chain",
     "msm_bucket_tsplit", "msm_bucket_signed", "mont_mul", "mont_mul_stage",
-    "mont_mul_part", "conv_mma", "scale16", "fold2")}
+    "mont_mul_part", "conv_mma", "scale16")}
 
 
 # `d[k] += 1` is a read, an add and a store, which another thread's launch

@@ -229,8 +229,7 @@ def pt_select(mask: torch.Tensor, p: Point, q: Point) -> Point:
 
 
 def pt_scalar_mul(spec: CurveSpec, scalars: torch.Tensor, p: Point) -> Point:
-    """k * P for (..., 32) canonical digit scalars k (plain torch; the plain
-    version of the fold2 kernel, ops/msm_pallas.py: fold_points2)."""
+    """k * P for (..., 32) canonical digit scalars k (plain torch)."""
     return _d(h_pt_scalar_mul(spec, scalars, _h(p)))
 
 

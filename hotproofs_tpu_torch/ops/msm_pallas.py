@@ -29,15 +29,12 @@ K1, each followed by K2 and K3 over its own slot count S:
   msm_bucket_signed  (replaces bucket_signed_call,
                       tools/exp_signed_msm.py:65)
 
-Bases that are not a key's (Spartan's IPA rounds fold their generators,
-and its matrix tables are points of their own) come through msm_var, with
-two kernels of csrc/points.cu:
+Bases that are not a key's (Spartan's matrix tables are points of their
+own) come through msm_var, with the kernel of csrc/points.cu:
 
   K5 scale16  (replaces the reference's scale_points16, ops/msm.py:62: the
                windows 16^w P of projective points, one thread a point;
                scale_points16, the key preparation, goes through it too)
-  K6 fold2    (replaces the IPA's generator fold, nova/spartan.py:198-201:
-               x^-1 G_lo + x G_hi by Shamir's trick, one thread a pair)
 
 then K4 to_affine and K1-K3; a base at the identity gets the scalar 0.
 
@@ -45,7 +42,7 @@ The kernels are CUDA C++ in csrc/msm.cu, csrc/msm_designs.cu and
 csrc/points.cu (what bounds each and how it is laid out is noted there).
 Beside each wrapper is its plain torch version, the same per-lane
 algorithm in the same order, so the two agree bit for bit in projective
-form (fold2: as affine points), and a launch count. A wrapper takes the
+form, and a launch count. A wrapper takes the
 plain version only for a tensor on the CPU; for a CUDA tensor it launches
 the kernel or raises.
 
@@ -529,9 +526,8 @@ def scale_points16(spec: C.CurveSpec, points: C.Point,
 
 
 # ---------------------------------------------------------------------------
-# Variable bases (csrc/points.cu): scale16 and fold2, and the MSM over
-# projective points that are not the key's (nova/spartan.py's IPA rounds
-# and preprocessed tables).
+# Variable bases (csrc/points.cu): scale16, and the MSM over projective
+# points that are not the key's (nova/spartan.py's preprocessed tables).
 # ---------------------------------------------------------------------------
 
 
@@ -573,44 +569,6 @@ def scale16(spec: C.CurveSpec, pts: torch.Tensor,
     if n and windows:
         _launch("scale16", lib().hp_scale16, _consts_arg(spec), _ptr(pts),
                 _ptr(out), n, windows, device=pts.device)
-    return out
-
-
-def fold_points2_plain(spec: C.CurveSpec, G: torch.Tensor, x: int,
-                       xi: int) -> torch.Tensor:
-    """Plain torch version of fold2: xi * G_lo and x * G_hi by the
-    reference's double-and-add (ops/curve.py: h_pt_scalar_mul, one call
-    over both halves), then a complete add."""
-    h = G.shape[0] // 2
-    f = spec.scalar
-    k = torch.from_numpy(f.batch_to_limbs([xi % f.p] * h + [x % f.p] * h))
-    pts = tuple(F.words_to_h16(G[:, c]) for c in range(3))
-    m = C.h_pt_scalar_mul(spec, k.to(G.device), pts)
-    return _proj_words(C.h_pt_add(spec, tuple(c[:h] for c in m),
-                                  tuple(c[h:] for c in m))).contiguous()
-
-
-def fold_points2(spec: C.CurveSpec, G: torch.Tensor, x: int,
-                 xi: int) -> torch.Tensor:
-    """The IPA's generator fold (kernel fold2, csrc/points.cu): (2h, 3, 8)
-    projective words -> (h, 3, 8), G'_i = xi * G_i + x * G_{h+i} for
-    scalar-field ints x and xi (x's inverse in the IPA). Affine equal to
-    the plain version; projective coordinates may differ."""
-    n = G.shape[0]
-    _check_input("fold2 points", G, (n, 3, NW))
-    if n % 2:
-        raise ValueError(f"fold2: {n} points, want an even count")
-    if not _on_cuda("fold2", G):
-        return fold_points2_plain(spec, G, x, xi)
-    h = n // 2
-    out = torch.empty((h, 3, NW), dtype=torch.int32, device=G.device)
-    if h:
-        f = spec.scalar
-        words = [((v % f.p) >> (32 * i)) & 0xFFFFFFFF
-                 for v in (xi, x) for i in range(NW)]
-        sc = (ctypes.c_uint32 * len(words))(*words)
-        _launch("fold2", lib().hp_fold2, _consts_arg(spec), sc, _ptr(G),
-                _ptr(out), h, device=G.device)
     return out
 
 

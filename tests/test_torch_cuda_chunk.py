@@ -81,17 +81,35 @@ def test_reference_chunk_proof_verifies_and_equals_the_port_proof(prover,
     assert (tmp_path / "port.json").read_bytes() == ref
 
 
-def test_cli_prove_compress_and_verify(prover, tmp_path, capsys):
-    """prove --compress writes a compressed chunk proof; verify falls back
-    to it; a wrong expected root is refused."""
+def test_cli_prove_compress_and_verify(prover, tmp_path, capsys,
+                                      monkeypatch):
+    """prove --compress writes a compressed chunk proof whose three IPAs
+    commit once a round over the key's prepared bases (msm_bucket once a
+    round, no scale16 or to_affine inside them); verify falls back to it; a
+    wrong expected root is refused."""
+    from hotproofs_tpu_torch.nova import spartan as SP
+
+    ipas = []
+    prove = SP._IPA.prove_weighted
+
+    def counted(self, *args):
+        before = {k: MP.launches[k]
+                  for k in ("msm_bucket", "scale16", "to_affine")}
+        out = prove(self, *args)
+        ipas.append((len(out[0].Ls), {k: MP.launches[k] - v
+                                      for k, v in before.items()}))
+        return out
+
+    monkeypatch.setattr(SP._IPA, "prove_weighted", counted)
     f = tmp_path / "data.bin"
     f.write_bytes(DATA)
     out = tmp_path / "cp.json"
-    before = (MP.launches["scale16"], MP.launches["fold2"])
     CP.main(["prove", "--file", str(f), "--chunk", "1", "--out", str(out),
              "--compress"])
-    assert MP.launches["scale16"] > before[0]
-    assert MP.launches["fold2"] > before[1]
+    assert len(ipas) == 3
+    for rounds, launched in ipas:
+        assert launched == {"msm_bucket": rounds, "scale16": 0,
+                            "to_affine": 0}
     assert json.loads(out.read_text())["kind"] == "compressed_chunk_proof"
     root = b3.hash_bytes(DATA)
     capsys.readouterr()
@@ -100,6 +118,24 @@ def test_cli_prove_compress_and_verify(prover, tmp_path, capsys):
     with pytest.raises(AssertionError, match="root hash mismatch"):
         CP.main(["verify", "--proof", str(out), "--expect-hash",
                  bytes(32).hex()])
+
+
+def test_compress_after_setup_launches_no_scale16_or_to_affine(prover):
+    """After SpartanSystem.setup, compress and verify_compressed launch no
+    scale16 and no to_affine, and compress launches msm_bucket once per IPA
+    round and once for the commitment to L."""
+    from hotproofs_tpu_torch.utils import telemetry as T_
+
+    rounds = lambda: T_.metrics.snapshot().get("spartan/ipa_rounds", 0)
+    root, proof = prover.prove(DATA, 1)
+    prover.spartan.setup()
+    before, r0 = dict(MP.launches), rounds()
+    cp = prover.compress(proof)
+    buckets = MP.launches["msm_bucket"] - before["msm_bucket"]
+    assert prover.verify_compressed(cp, root) == root
+    assert buckets == rounds() - r0 + 1
+    for k in ("scale16", "to_affine"):
+        assert MP.launches[k] == before[k], k
 
 
 def test_reference_chunk_proof_compresses_and_verifies(prover, tmp_path):

@@ -509,38 +509,3 @@ def test_scale16_body_vs_plain_and_host(hc, name):
     for w in range(w4):
         want += [C.host_scalar_mul(spec, 16 ** w, p) for p in pts]
     assert got == want
-
-
-@pytest.mark.parametrize("name", ["pallas", "bn254"])
-def test_fold2_body_vs_plain_and_host(hc, name):
-    """fold2's per-thread code (Shamir's trick) == the plain version (two
-    double-and-add multiplications and an add) as affine points, and ==
-    x^-1 G_lo + x G_hi on the host: with an identity among G_lo and G_hi,
-    a pair that cancels, and zero and small scalars."""
-    spec = C.CURVES[name]
-    f = spec.scalar
-    rng = np.random.default_rng(10)
-    lo, hi = _rand_points(spec, rng, 4), _rand_points(spec, rng, 4)
-    lo[1] = None                                   # identity in G_lo
-    hi[2] = None                                   # identity in G_hi
-    hi[3] = (lo[3][0], (-lo[3][1]) % spec.base.p)  # G_hi = -G_lo
-    G = MP.point_words(C.affine_to_mont(spec, lo + hi))
-    x = int.from_bytes(rng.bytes(32), "little") % f.p
-    for xi, x_ in ((pow(x, -1, f.p), x), (0, x), (3, 0), (1, 1), (0, 0)):
-        words = np.asarray([(v >> (32 * k)) & 0xFFFFFFFF for v in (xi, x_)
-                            for k in range(8)], np.uint32)
-        out = np.zeros((4, 3, 8), np.uint32)
-        hc.hc_fold2(_p(MP.consts_words(spec)), _p(words),
-                    _p(np.ascontiguousarray(G.numpy().view(np.uint32))),
-                    _p(out), LL(4))
-        got = C.pt_to_affine_host(spec, MP.words_point(
-            torch.from_numpy(out.view(np.int32))))
-        want = [C.host_add(spec, C.host_scalar_mul(spec, xi, a),
-                           C.host_scalar_mul(spec, x_, b))
-                for a, b in zip(lo, hi)]
-        assert got == want, (xi, x_)
-        # the plain version's double-and-add takes seconds at 256 bits on
-        # the CPU: held at full width once, at the small scalars always
-        if max(xi, x_) < 256 or (name == "pallas" and xi and x_ > 256):
-            assert C.pt_to_affine_host(spec, MP.words_point(
-                MP.fold_points2_plain(spec, G, x_, xi))) == want, (xi, x_)

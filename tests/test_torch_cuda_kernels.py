@@ -174,33 +174,11 @@ def test_scale16_kernel_vs_plain(dev, n, windows):
     assert not bool(got[:, n // 2, 2].any())
 
 
-def test_fold2_kernel_vs_plain_and_host(dev):
-    """fold2 == its plain version and the host as affine points, with an
-    identity on either side and a pair that cancels."""
-    f = SPEC.scalar
-    lo = [C.host_scalar_mul(SPEC, 5 + i, SPEC.gen) for i in range(200)]
-    hi = [C.host_scalar_mul(SPEC, 999 + 3 * i, SPEC.gen) for i in range(200)]
-    lo[1], hi[2] = None, None
-    hi[3] = (lo[3][0], (-lo[3][1]) % SPEC.base.p)
-    G = MP.point_words(C.affine_to_mont(SPEC, lo + hi, dev))
-    x = 0x1234567890ABCDEF1234567890ABCDEF % f.p
-    xi = pow(x, -1, f.p)
-    before = MP.launches["fold2"]
-    got = C.pt_to_affine_host(SPEC, MP.words_point(
-        MP.fold_points2(SPEC, G, x, xi)))
-    assert MP.launches["fold2"] == before + 1
-    assert got == C.pt_to_affine_host(SPEC, MP.words_point(
-        MP.fold_points2_plain(SPEC, G, x, xi)))
-    assert got == [C.host_add(SPEC, C.host_scalar_mul(SPEC, xi, a),
-                              C.host_scalar_mul(SPEC, x, b))
-                   for a, b in zip(lo, hi)]
-
-
 @pytest.mark.parametrize("m", [1, 2, 3, 8, 16, 1000])
 def test_msm_var_on_the_card_vs_host(dev, m):
     """msm_var (scale16, to_affine, the MSM chain) over points with an
-    identity among them == the host MSM, at the IPA's small sizes and at
-    one large."""
+    identity among them == the host MSM, at small sizes and at one
+    large."""
     rng = np.random.default_rng(m)
     pts = [C.host_scalar_mul(SPEC, 1 + int(rng.integers(1 << 40)),
                              SPEC.gen) for _ in range(m)]

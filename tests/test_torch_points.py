@@ -1,6 +1,6 @@
-"""The variable-base point operations of Spartan's IPA (ops/curve.py
-pt_scalar_mul, ops/msm_pallas.py scale16, fold_points2 and msm_var, each
-through its plain version on the CPU) against the host oracles."""
+"""The variable-base point operations (ops/curve.py pt_scalar_mul,
+ops/msm_pallas.py scale16 and msm_var, which Spartan's matrix tables use,
+each through its plain version on the CPU) against the host oracles."""
 
 import numpy as np
 import pytest
@@ -42,25 +42,6 @@ def test_pt_scalar_mul_vs_host(name):
     assert got == [C.host_scalar_mul(spec, k, p) for k, p in zip(ks, pts)]
 
 
-def test_fold_points2_plain_vs_host():
-    """fold2's plain version: x^-1 G_lo + x G_hi as affine points, with an
-    identity on each side and a pair that cancels."""
-    spec = C.PALLAS
-    f = spec.scalar
-    rng = np.random.default_rng(2)
-    lo, hi = _points(spec, rng, 3, identity=(1,)), _points(spec, rng, 3)
-    hi[2] = (lo[2][0], (-lo[2][1]) % spec.base.p)
-    G = MP.point_words(C.affine_to_mont(spec, lo + hi))
-    x = _scalars(spec, rng, 1)[0]
-    xi = pow(x, -1, f.p)
-    got = C.pt_to_affine_host(spec, MP.words_point(
-        MP.fold_points2(spec, G, x, xi)))
-    assert got == [C.host_add(spec, C.host_scalar_mul(spec, xi, a),
-                              C.host_scalar_mul(spec, x, b))
-                   for a, b in zip(lo, hi)]
-    assert got[2] == C.host_scalar_mul(spec, (xi - x) % f.p, lo[2])
-
-
 def test_scale_points16_keeps_its_digit_interface():
     """scale_points16 (digits, through scale16) == 16^w P on the host."""
     spec = C.PALLAS
@@ -75,9 +56,8 @@ def test_scale_points16_keeps_its_digit_interface():
 @pytest.mark.parametrize("m", list(range(1, 17)))
 def test_msm_var_vs_host(m):
     """msm_var (scale16, to_affine, bases_tm, the MSM chain) on m points,
-    one of them the identity, two jobs == host_msm: every m the IPA's
-    last rounds give (2h = 2, 4, 8 for h = 1, 2, 4) and the plan's smallest
-    B. Full 256-bit scalars at m = 1, 2, 4, 8 and 16; 32 bits (8 windows)
+    one of them the identity, two jobs == host_msm: every m up to the
+    plan's smallest B, and beyond it (a small table's sizes). Full 256-bit scalars at m = 1, 2, 4, 8 and 16; 32 bits (8 windows)
     at the others, where 64 windows cost the plain doublings seconds."""
     spec = C.PALLAS
     rng = np.random.default_rng(100 + m)
