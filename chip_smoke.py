@@ -79,7 +79,24 @@ exit and no result line:
      setup gave it, timed beside its bound, and each round of the first
      IPA (its J = 2 commit over the key's prepared bases beside the MSM's
      bound, and its two mont_mul) timed on the scalars the compress gave
-     it, with the card's name and power limit beside every time.
+     it, with the card's name and power limit beside every time;
+ 10. the recursive SNARK (nova/recursive.py), with the launch counts set
+     to 0 before it: the phase-4 prover's RecursiveSNARK over the BLAKE3
+     step (both augmented circuits at full width, the vk, both keys made
+     and prepared on the card), prove_recursive of phase 4's chunk with
+     each step's host synthesis, device and commit ms, verify_recursive
+     against the root, the proof file's bytes, four tampers refused
+     (chunk_idx, z_final, U1's comm_W and comm_E swapped, one entry of
+     W1); the reference tests' toy chain (2 steps) on Pasta, byte-equal to
+     the reference's real-commitment proof where tests/data holds it, and
+     on BN254/Grumpkin, each verified; the launch counts of those runs
+     (msm_bucket, msm_merge, msm_wsum, mont_mul, to_affine and scale16
+     must be > 0); one warm recursive prove under torch.profiler (the
+     card's busy time and launches a step); then msm_bucket, msm_merge,
+     msm_wsum and mont_mul against their plain versions on the inputs of
+     the first commit and to_mont of each curve and shape, to_affine and
+     scale16 on the first points of each key preparation, and the
+     m = 65,536 and 32,768 commits timed beside their bound.
 The last two lines are the kernels' JSON summary (with each kernel's
 bound: the least time the card could take for the work of its timed
 call) and the result line.
@@ -135,6 +152,12 @@ COMPRESS = ("msm_bucket", "msm_merge", "msm_wsum", "to_affine", "mont_mul",
 # and stack tests/spartan_chains.py holds.
 TESTS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
 SPARTAN_CHAINS = ("toy", "wide")
+RECURSIVE = ("msm_bucket", "msm_merge", "msm_wsum", "to_affine", "mont_mul",
+             "scale16")                                        # phase 10
+# Phase 10's kernel checks of the key preparations: the first points of
+# each (to_affine's blocks and scale16's threads are independent, so a
+# slice gives the kernel's values on those points).
+AFFINE_CHECK, SCALE_CHECK = 1 << 16, 1 << 12
 
 # The bound of a kernel's call: the larger of its bytes (each input read
 # once, each output written once) over the HBM rate and its 32-bit integer
@@ -361,24 +384,25 @@ def designs_phase(prover, data, dev, rng, note, stats, bounds,
 @contextlib.contextmanager
 def capturing(seen: dict, label: str):
     """While active, keep in seen the inputs of the first msm_many and
-    to_mont call of each shape not seen before whose scalars are not all
-    zero (a chain's first cross term is), keyed by (kind, shape), with the
-    label of the run that gave them: phase 8 holds the kernels against
-    their plain versions on them."""
+    to_mont call of each curve or field and shape not seen before whose
+    scalars are not all zero (a chain's first cross term is), keyed by
+    (kind, curve or field, shape), with the label of the run that gave
+    them: phases 8 and 10 hold the kernels against their plain versions on
+    them."""
     from hotproofs_tpu_torch.ops import field as F
     from hotproofs_tpu_torch.ops import msm_pallas as MP
 
     msm_many, to_mont = MP.msm_many, F.to_mont
 
     def msm_rec(spec, scalars, bases, m, max_bits, b=None, bases_lm=None):
-        key = ("msm", (scalars.shape[0], m, max_bits))
+        key = ("msm", spec.name, (scalars.shape[0], m, max_bits))
         if key not in seen and bool(scalars.any()):
             seen[key] = (label, spec, scalars.clone(), bases, m, max_bits,
                          b, bases_lm)
         return msm_many(spec, scalars, bases, m, max_bits, b, bases_lm)
 
     def mont_rec(spec, a):
-        key = ("to_mont", tuple(a.shape))
+        key = ("to_mont", spec.name, tuple(a.shape))
         if key not in seen and bool(a.any()):
             seen[key] = (label, spec, a.clone())
         return to_mont(spec, a)
@@ -396,14 +420,17 @@ def check_captured(seen: dict, dev, note, tag: str) -> None:
     from hotproofs_tpu_torch.ops import msm_pallas as MP
     from hotproofs_tpu_torch.ops import pallas_field as PF
 
-    for (kind, dims), (label, *inp) in seen.items():
+    for (kind, where, dims), (label, *inp) in seen.items():
         t0 = time.perf_counter()
+        if kind not in ("msm", "to_mont"):
+            continue
         if kind == "to_mont":
             spec, x = inp
             note("mont_mul", PF.mont_mul_em(spec, x, PF.const_digits(
                 spec, "r2", dev)), PF.mont_mul_em_plain(
                 spec, x, PF.const_digits(spec, "r2", dev)))
-            what = f"mont_mul (to_mont of {' x '.join(map(str, dims[:2]))})"
+            what = f"mont_mul (to_mont of {' x '.join(map(str, dims[:2]))}" \
+                f", {where})"
         else:
             spec, sc, bases, m, bits, b, lm = inp
             b, lpw, w4, _ = MP.plan(m, bits, b)
@@ -414,8 +441,8 @@ def check_captured(seen: dict, dev, note, tag: str) -> None:
             note("msm_merge", red, MP.msm_merge_plain(spec, bk))
             note("msm_wsum", MP.msm_wsum(spec, red),
                  MP.msm_wsum_plain(spec, red))
-            what = f"msm_bucket, msm_merge, msm_wsum (J={dims[0]}, " \
-                f"m={m}, {bits} bits, nonzero digits " \
+            what = f"msm_bucket, msm_merge, msm_wsum ({where}, " \
+                f"J={dims[0]}, m={m}, {bits} bits, nonzero digits " \
                 f"{float((d != 0).float().mean()):.4f})"
         torch.cuda.synchronize()
         say(tag, f"{label}: {what} == plain "
@@ -892,6 +919,266 @@ def compression_phase(prover, data, ci, proof, root, dev, note, stats,
     return {"scale16": counts["scale16"]}
 
 
+@contextlib.contextmanager
+def capturing_keys(seen: dict, label: str):
+    """While active, keep in seen the first points of each key
+    preparation's scale16 and to_affine call, keyed by (kind, curve, point
+    count), with the label of the run that gave them."""
+    from hotproofs_tpu_torch.ops import msm_pallas as MP
+
+    scale, aff = MP.scale16, MP.to_affine_words
+
+    def scale_rec(spec, pts, windows):
+        seen.setdefault(("scale16", spec.name, pts.shape[0]), (
+            label, spec, pts[:SCALE_CHECK].clone(), windows))
+        return scale(spec, pts, windows)
+
+    def aff_rec(spec, X, Y, Z):
+        seen.setdefault(("to_affine", spec.name, X.shape[0]), (
+            label, spec) + tuple(c[:AFFINE_CHECK].clone() for c in (X, Y, Z)))
+        return aff(spec, X, Y, Z)
+
+    MP.scale16, MP.to_affine_words = scale_rec, aff_rec
+    try:
+        yield
+    finally:
+        MP.scale16, MP.to_affine_words = scale, aff
+
+
+def commit_times(seen: dict, rate: float, tag: str, smi: str) -> None:
+    """The 256-bit commits of phase 10 timed on their captured scalars
+    (CUDA events, mean of 5 after one), beside the MSM's bound: a mixed add
+    for each nonzero digit, the scalars and the lane-major bases read once,
+    one projective point written."""
+    from hotproofs_tpu_torch.ops import msm_pallas as MP
+
+    for (kind, where, dims), (label, *inp) in seen.items():
+        if kind != "msm":
+            continue
+        spec, sc, bases, m, bits, b, lm = inp
+        b, lpw, w4, _ = MP.plan(m, bits, b)
+        live = int((MP.digits_tm(sc, m, b, lpw, w4) != 0).sum())
+        run = lambda: MP.msm_many(spec, sc, bases, m, bits, b, lm)
+        run()
+        ms = cuda_ms(run, 5)
+        bnd = bound(MONT_MIXED_ADD * live, nbytes(sc, lm) + 3 * 8 * 4, rate)
+        say(tag, f"{label}: commit on {where} (J={dims[0]}, m={m}, {bits} "
+            f"bits): msm_many {ms:.3f} ms, bound {bnd[0]:.4f} ms by {bnd[1]} "
+            f"({live} of {dims[0] * m * w4} digits nonzero; "
+            f"{100 * bnd[0] / ms:.1f} % of the bound) [{smi}]")
+
+
+def recursive_phase(prover, data, ci, root, dev, note, rate, smi) -> dict:
+    """Phase 10: the recursive SNARK. The full-width BLAKE3 chain of phase
+    4's chunk (prove, verify, four tampers), the toy chains on Pasta (byte
+    parity with the reference's fixture where tests/data holds it) and
+    BN254/Grumpkin, their launch counts, one warm prove profiled, then the
+    kernels held against their plain versions on the phase's inputs and
+    the new commit widths timed. Returns the launch counts of the
+    chains."""
+    import copy
+    import tempfile
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from hotproofs_tpu_torch.models import chunk_prover as CP
+    from hotproofs_tpu_torch.ops import msm_pallas as MP
+    from hotproofs_tpu_torch.utils.config import CONFIG
+
+    if TESTS_DIR not in sys.path:
+        sys.path.append(TESTS_DIR)
+    import test_torch_recursive_fixtures as RC
+
+    tag = "10 recursive"
+    seen: dict = {}
+    # Bases an earlier run cached on disk would skip the key preparation.
+    for name in os.listdir(CONFIG.cache_dir):
+        if name.startswith("torch_scaledaff_") and (
+                "_blake3-rec-" in name or "_test-recursive" in name):
+            os.remove(os.path.join(CONFIG.cache_dir, name))
+    MP.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+
+    with capturing(seen, "blake3-rec"), capturing_keys(seen, "blake3-rec"):
+        t0 = time.perf_counter()
+        rs = prover.recursive
+        say(tag, f"RecursiveSNARK over the BLAKE3 step in "
+            f"{time.perf_counter() - t0:.1f} s (probe circuits "
+            f"{rs.setup_times['probes']:.1f} s, vk over both probe shapes "
+            f"{rs.setup_times['vk']:.2f} s, both sides' circuits and shapes "
+            f"{rs.setup_times['sides']:.1f} s) [{smi}]")
+        for side in (rs.side1, rs.side2):
+            sh = side.shape
+            nnz = [len(getattr(sh, x).rows) for x in "ABC"]
+            t0 = time.perf_counter()
+            ck = side.ck
+            t_der = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            ck.bases_lm(side.n_pad, 256)
+            torch.cuda.synchronize()
+            say(tag, f"{side.name} on {side.curve.name}: {sh.n_cons} "
+                f"constraints, {sh.n_vars} signals, nnz A/B/C {nnz}, "
+                f"commit width {side.n_pad}; key: {side.n_pad} generators "
+                f"in {t_der:.1f} s, prepared (64 windows) in "
+                f"{time.perf_counter() - t0:.2f} s [{smi}]")
+        say(tag, f"device memory after both keys: "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+            f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+        t0 = time.perf_counter()
+        root_r, rp = prover.prove_recursive(data, ci)
+        t_prove = time.perf_counter() - t0
+        require(root_r == root, "prove_recursive returned another root")
+        n = rp.rec.n_steps
+        steps = rs.timings
+        parts = ("synth_primary", "synth_secondary", "device", "commit")
+        for st in steps:    # the host's other work: step function, RO, folds
+            st["other"] = st["wall"] - sum(st[p] for p in parts)
+        for k, st in enumerate(steps, 1):
+            say(tag, f"step {k}/{n}: synthesis primary "
+                f"{st['synth_primary']:.1f} ms, secondary "
+                f"{st['synth_secondary']:.1f} ms; device (to_mont, SpMV, "
+                f"cross terms, folds) {st['device']:.1f} ms; commits "
+                f"{st['commit']:.1f} ms; other host work {st['other']:.1f} "
+                f"ms; wall {st['wall']:.1f} ms")
+        warm = steps[1:] or steps
+        mean = lambda k: sum(st[k] for st in warm) / len(warm)
+        say(tag, f"prove_recursive chunk {ci}: {n} steps in {t_prove:.2f} s; "
+            f"steps 2..{n} mean: synthesis {mean('synth_primary'):.1f} + "
+            f"{mean('synth_secondary'):.1f} ms, device {mean('device'):.1f} "
+            f"ms, commits {mean('commit'):.1f} ms, other host work "
+            f"{mean('other'):.1f} ms, wall {mean('wall'):.1f} ms [{smi}]")
+        t0 = time.perf_counter()
+        require(prover.verify_recursive(rp, root) == root,
+                "verify_recursive returned another root")
+        say(tag, f"verify_recursive: {time.perf_counter() - t0:.2f} s "
+            f"[{smi}]")
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "rec.json")
+            rp.save(path)
+            say(tag, f"recursive chunk proof file: {os.path.getsize(path)} "
+                "bytes")
+            back = CP.RecursiveChunkProof.load(path)
+        require(back.rec.to_dict() == rp.rec.to_dict(),
+                "the saved recursive proof did not read back")
+
+        def refused(what, change, want):
+            bad = copy.deepcopy(back)
+            change(bad)
+            try:
+                prover.verify_recursive(bad)
+            except AssertionError as e:
+                require(want in str(e), f"{what}: refused as {e}")
+                say(tag, f"{what}: refused ({e})")
+            else:
+                require(False, f"a recursive proof with {what} verified")
+
+        q = rs.q
+
+        def swap(b):
+            b.rec.U1.comm_W, b.rec.U1.comm_E = b.rec.U1.comm_E, \
+                b.rec.U1.comm_W
+
+        def bump_w(b):
+            b.rec.W1[7] = (b.rec.W1[7] + 1) % q
+
+        refused("chunk_idx changed",
+                lambda b: setattr(b, "chunk_idx", b.chunk_idx ^ 1),
+                "z0 mismatch")
+        refused("z_final changed", lambda b: setattr(
+            b.rec, "z_final", [(b.rec.z_final[0] + 1) % q]
+            + b.rec.z_final[1:]), "primary state hash mismatch")
+        refused("U1.comm_W and comm_E swapped", swap,
+                "secondary state hash mismatch")
+        refused("one entry of W1 changed", bump_w, "comm_W mismatch (primary)")
+        say(tag, f"peak device memory of the full-width chain "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    have_ref = os.path.exists(RC.ref_path("toy"))
+    for cyc, label in ((("pallas", "vesta"), RC.LABEL),
+                       (("bn254", "grumpkin"), b"test-recursive-bn")):
+        run = f"toy {cyc[0]}/{cyc[1]}"
+        with capturing(seen, run), capturing_keys(seen, run):
+            t0 = time.perf_counter()
+            ts = RC.port_snark(cyc, label, device=dev)
+            tp = ts.prove(RC.Z0, n_steps=RC.CHAINS["toy"][1])
+            z = RC.Z0
+            for _ in range(tp.n_steps):
+                z = RC.toy_host(ts.q)(z)
+            require(ts.verify(tp) == z, f"the {run} chain did not verify")
+            msg = f"{run}: {tp.n_steps} steps proved with real commits and " \
+                f"verified in {time.perf_counter() - t0:.1f} s (keys and " \
+                "circuits included)"
+            if cyc[0] == "pallas" and have_ref:
+                ref = RC.load_ref("toy")
+                require(json.dumps(tp.to_dict()) == json.dumps(ref),
+                        "the port's toy recursive proof differs from the "
+                        "reference's")
+                require(ts.verify(type(tp).from_dict(ref)) == z,
+                        "the reference's toy recursive proof did not verify")
+                msg += "; byte-equal to the reference's proof (tests/data), " \
+                    "which verifies"
+            say(tag, msg + f" [{smi}]")
+    torch.cuda.synchronize()
+    counts = dict(MP.launches)
+    say(tag, "launches (the BLAKE3 chain, its verify and tampers, the toy "
+        "chains): " + ", ".join(f"{k} {counts[k]}" for k in RECURSIVE))
+    for k in RECURSIVE:
+        require(counts[k] > 0, f"{k} was not launched in the recursive phase")
+
+    # One warm prove under the profiler: the 3-step chunk of CHUNK2_DATA.
+    MP.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, pp = prover.prove_recursive(CHUNK2_DATA, 1)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in ev) / 1e3
+    n_dev = sum(e.count for e in ev)
+    n_p = pp.rec.n_steps
+    top = sorted(ev, key=lambda e: e.self_device_time_total, reverse=True)
+    say(tag, f"profiled warm prove_recursive ({n_p} steps): wall {wall:.1f} "
+        f"ms, device busy {busy:.1f} ms (idle share {1 - busy / wall:.3f}), "
+        f"{n_dev} device events ({n_dev / n_p:.0f} a step), msm_bucket "
+        f"{MP.launches['msm_bucket']} launches; top: " + ", ".join(
+            f"{e.key[:36]} {e.self_device_time_total / 1e3:.1f} ms / "
+            f"{e.count}" for e in top[:8]) + f" [{smi}]")
+    require(prover.verify_recursive(pp) == _oracle_root(CHUNK2_DATA),
+            "the profiled recursive proof did not verify")
+
+    # The kernels against their plain versions on the phase's inputs.
+    check_captured(seen, dev, note, tag)
+    for (kind, where, n_pts), (label, *inp) in seen.items():
+        t0 = time.perf_counter()
+        if kind == "scale16":
+            spec, pts, windows = inp
+            note("scale16", MP.scale16(spec, pts, windows),
+                 MP.scale16_plain(spec, pts, windows))
+            k = pts.shape[0]
+        elif kind == "to_affine":
+            spec, X, Y, Z = inp
+            xk, yk = MP.to_affine_words(spec, X, Y, Z)
+            xp, yp = MP.to_affine_words_plain(spec, X, Y, Z)
+            note("to_affine", xk, xp)
+            note("to_affine", yk, yp)
+            k = X.shape[0]
+        else:
+            continue
+        torch.cuda.synchronize()
+        say(tag, f"{label}: {kind} == plain on the first {k} of the "
+            f"{n_pts} points of the {where} key preparation "
+            f"({time.perf_counter() - t0:.1f} s)")
+    commit_times(seen, rate, tag, smi)
+    say(tag, f"phase {time.perf_counter() - t_phase:.1f} s [{smi}]; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return counts
+
+
 def field_phase(prover, dev, rng, note, stats, bounds) -> dict:
     """Phase 7: the four field-multiply kernels against their plain
     versions in three fields, mont_mul at the prover's own shapes, then
@@ -1307,6 +1594,9 @@ def main() -> int:
     # -- 9. Spartan compression ----------------------------------------------
     counts.update(compression_phase(prover, data, ci, proof, root, dev, note,
                                     stats, bounds, rate, smi))
+
+    # -- 10. the recursive SNARK ---------------------------------------------
+    recursive_phase(prover, data, ci, root, dev, note, rate, smi)
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": CSRC + src,

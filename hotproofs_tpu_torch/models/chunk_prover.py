@@ -1,6 +1,7 @@
 """Prove and verify possession of a BLAKE3 chunk by Nova folding (port of
 hotproofs_tpu/models/chunk_prover.py: prove, prove_many, verify, the
-verification key, segmented proofs, compressed proofs, the CLI).
+verification key, segmented proofs, compressed proofs, recursive proofs,
+the CLI).
 
 One step per 64-byte block of the chunk plus one per Merkle level; the
 verifier recomputes the root hash from the final state z[2:10]. Proofs and
@@ -35,6 +36,7 @@ from ..nova import serial
 from ..nova.ivc import IVC, IVCProof, check
 from ..nova.pedersen import CommitmentKey
 from ..nova.r1cs import ShapeDevice
+from ..nova.recursive import RecursiveProof, RecursiveSNARK
 from ..nova.spartan import CompressedProof, SpartanSystem
 from ..nova.vk import export_vk, ivc_from_vk
 from ..ops import curve as C
@@ -166,6 +168,41 @@ class SegmentedChunkProof:
             total_depth=int(d["total_depth"]))
 
 
+@dataclass
+class RecursiveChunkProof:
+    """Chunk statement + an augmented-IVC proof (nova/recursive.py): its
+    verification work does not grow with the chain."""
+
+    rec: RecursiveProof
+    chunk_idx: int
+    n_blocks: int
+    leaf_depth: int
+    total_depth: int
+
+    def save(self, path: str) -> None:
+        serial.dump("recursive_chunk_proof", {
+            "rec": self.rec.to_dict(),
+            "chunk_idx": int(self.chunk_idx),
+            "n_blocks": int(self.n_blocks),
+            "leaf_depth": int(self.leaf_depth),
+            "total_depth": int(self.total_depth),
+        }, path)
+
+    @staticmethod
+    def load(path: str) -> "RecursiveChunkProof":
+        d = serial.load("recursive_chunk_proof", path)
+        return RecursiveChunkProof(
+            rec=RecursiveProof.from_dict(d["rec"]),
+            chunk_idx=int(d["chunk_idx"]), n_blocks=int(d["n_blocks"]),
+            leaf_depth=int(d["leaf_depth"]),
+            total_depth=int(d["total_depth"]))
+
+
+# The recursive SNARK's 2-cycle, by the prover's curve.
+CYCLES = {"pallas": (C.PALLAS, C.VESTA), "vesta": (C.VESTA, C.PALLAS),
+          "bn254": (C.BN254, C.GRUMPKIN), "grumpkin": (C.GRUMPKIN, C.BN254)}
+
+
 def check_statement(modulus: int, z0, num_steps, chunk_idx, n_blocks,
                     leaf_depth, total_depth) -> None:
     """z0 must encode (IV, depth = leaf_depth - 1, block_count = 0, the
@@ -236,6 +273,7 @@ class ChunkProver:
         self.ivc, self.layout, self.modulus = _build_stack(
             curve, depth_bits, str(self.device))
         self._spartan: Optional[SpartanSystem] = None
+        self._recursive: Optional[RecursiveSNARK] = None
 
     @staticmethod
     def _hash_with_path(data: bytes, chunk_idx: int):
@@ -352,6 +390,60 @@ class ChunkProver:
             compressed=cp, chunk_idx=proof.chunk_idx,
             n_blocks=proof.n_blocks, leaf_depth=proof.leaf_depth,
             total_depth=proof.total_depth)
+
+    @property
+    def recursive(self) -> RecursiveSNARK:
+        """The RecursiveSNARK with the BLAKE3 step as F (the augmented IVC),
+        built on first use on the prover's cycle: Pasta, or BN254/Grumpkin
+        for ChunkProver(curve="bn254"). Its keys are made on its first
+        commit."""
+        if self._recursive is None:
+            def f_gadget(ctx, z_prev, extra):
+                return nova_circ.nova_step_body(ctx, z_prev, extra, 0,
+                                                self.depth_bits)
+
+            def f_host(z, extra):
+                step = nova_circ.StepInputs(
+                    m=tuple(extra["m"]), b=int(extra["b"][0]),
+                    down_left=int(extra["down_left"][0]))
+                _, z_out = nova_circ.eval_step_witness(
+                    z, step, self.modulus, depth_bits=self.depth_bits)
+                return z_out
+
+            self._recursive = RecursiveSNARK(
+                f_gadget, f_host, arity=IO_ARITY, label=b"blake3-rec",
+                f_extra_decl=nova_circ.declare_step_inputs,
+                cycle=CYCLES[self.ivc.curve.name], device=self.device)
+        return self._recursive
+
+    def prove_recursive(self, data: bytes, chunk_idx: int,
+                        progress: bool = False
+                        ) -> Tuple[bytes, RecursiveChunkProof]:
+        """Prove a chunk by the augmented recursive IVC: each step verifies
+        the other curve's fold in-circuit, and the verifier's work does not
+        grow with the chain. Returns (root_hash, RecursiveChunkProof)."""
+        proof_data = self._hash_with_path(data, chunk_idx)
+        sched = nova_circ.build_schedule(proof_data)
+        step_inputs = [{"m": list(s.m), "b": [s.b],
+                        "down_left": [s.down_left]} for s in sched.steps]
+        rproof = self.recursive.prove(sched.z0, len(sched.steps),
+                                      step_inputs=step_inputs,
+                                      progress=progress)
+        # The statement comes from the schedule, as _chunk_proof's does
+        # (the tree hasher's proof carries no block count).
+        return proof_data.root_hash, RecursiveChunkProof(
+            rec=rproof, chunk_idx=chunk_idx, n_blocks=sched.n_blocks,
+            leaf_depth=sched.leaf_depth, total_depth=proof_data.total_depth)
+
+    def verify_recursive(self, proof: RecursiveChunkProof,
+                         expected_hash: Optional[bytes] = None) -> bytes:
+        """Verify a recursive chunk proof (the two state hashes, the three
+        instances, the statement); returns the proven root."""
+        check_statement(self.modulus, proof.rec.z0, proof.rec.n_steps,
+                        proof.chunk_idx, proof.n_blocks, proof.leaf_depth,
+                        proof.total_depth)
+        return _proof_root(self.recursive.verify(proof.rec), proof,
+                           expected_hash)
 
     def export_vk(self, path: str) -> None:
         """Write the standalone verification key (nova/vk.py): anyone can

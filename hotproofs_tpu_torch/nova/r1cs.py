@@ -35,8 +35,11 @@ class SparseMat:
 
 def _mat_from_coo(spec: F.FieldSpec, rows, cols, vals, n_cons) -> SparseMat:
     order = np.argsort(rows, kind="stable")
-    vals_mont = np.stack([F.int_to_limbs(spec.to_mont_int(int(v)))
-                          for v in vals[order]]).astype(np.int32)
+    # A circuit's coefficients repeat (1, -1, powers of two): convert each
+    # distinct value once.
+    ints = [int(v) for v in vals[order]]
+    mont = {v: spec.to_mont_int(v) for v in set(ints)}
+    vals_mont = spec.batch_to_limbs([mont[v] for v in ints])
     return SparseMat(rows[order].astype(np.int32),
                      cols[order].astype(np.int32), vals_mont, n_cons)
 

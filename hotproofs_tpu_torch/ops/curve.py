@@ -15,14 +15,17 @@ jax.
 
 from __future__ import annotations
 
-import hashlib
+import os
+import subprocess
+import sys
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from . import field as F
+from . import hash_to_curve as H2C
 
 Point = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]   # (X, Y, Z)
 
@@ -40,33 +43,6 @@ class CurveSpec:
         return F.int_to_limbs(self.base.to_mont_int(3 * self.b))
 
 
-def _sqrt_mod(a: int, p: int) -> Optional[int]:
-    """Tonelli-Shanks square root (host-side, generator derivation only)."""
-    a %= p
-    if a == 0:
-        return 0
-    if pow(a, (p - 1) // 2, p) != 1:
-        return None
-    if p % 4 == 3:
-        return pow(a, (p + 1) // 4, p)
-    q, s = p - 1, 0
-    while q % 2 == 0:
-        q //= 2
-        s += 1
-    z = 2
-    while pow(z, (p - 1) // 2, p) != p - 1:
-        z += 1
-    m, c, t, r = s, pow(z, q, p), pow(a, q, p), pow(a, (q + 1) // 2, p)
-    while t != 1:
-        i, tt = 0, t
-        while tt != 1:
-            tt = tt * tt % p
-            i += 1
-        bex = pow(c, 1 << (m - i - 1), p)
-        m, c, t, r = i, bex * bex % p, t * bex * bex % p, r * bex % p
-    return r
-
-
 PALLAS = CurveSpec("pallas", F.pallas_base, F.pallas_scalar, 5,
                    (F.PALLAS_P - 1, 2))
 VESTA = CurveSpec("vesta", F.vesta_base, F.vesta_scalar, 5,
@@ -74,7 +50,7 @@ VESTA = CurveSpec("vesta", F.vesta_base, F.vesta_scalar, 5,
 BN254 = CurveSpec("bn254", F.bn254_base, F.bn254_scalar, 3, (1, 2))
 GRUMPKIN = CurveSpec("grumpkin", F.grumpkin_base, F.grumpkin_scalar,
                      (-17) % F.BN254_FR,
-                     (1, _sqrt_mod((1 - 17) % F.BN254_FR, F.BN254_FR)))
+                     (1, H2C.sqrt_mod((1 - 17) % F.BN254_FR, F.BN254_FR)))
 
 CURVES = {c.name: c for c in (PALLAS, VESTA, BN254, GRUMPKIN)}
 
@@ -373,25 +349,48 @@ def host_on_curve(spec: CurveSpec, p) -> bool:
     return (y * y - (x * x * x + spec.b)) % spec.base.p == 0
 
 
+# derive_generators splits keys of at least this many generators over
+# worker processes, one per core (about 1.4 ms a Pasta point on one core).
+POOL_MIN = 4096
+
+
 def derive_generators(spec: CurveSpec, label: bytes,
                       n: int) -> List[Tuple[int, int]]:
     """n generators by hash-to-x and try-and-increment: x = SHA-512(
     "hotproofs_tpu/gen/" || curve || "/" || label || i || ctr) mod p, the
     smaller square root for y (the reference's derivation, unchanged:
-    both packages must commit with the same key)."""
-    p = spec.base.p
+    both packages must commit with the same key). A key of POOL_MIN or more
+    is derived over the host's cores, with the same output."""
+    procs = len(os.sched_getaffinity(0))
+    if n >= POOL_MIN and procs > 1:
+        return _derive_pooled(spec, label, n, procs)
+    return H2C.derive_range(spec.name, spec.base.p, spec.b, label, 0, n)
+
+
+def _derive_pooled(spec: CurveSpec, label: bytes, n: int,
+                   procs: int) -> List[Tuple[int, int]]:
+    """derive_generators over `procs` worker processes (hash_to_curve.py
+    run as a script, one contiguous range of indices each), concatenated
+    in order."""
+    step = -(-n // procs)
+    workers = [subprocess.Popen(
+        [sys.executable, H2C.__file__, spec.name, str(spec.base.p),
+         str(spec.b), label.hex(), str(a), str(min(n, a + step))],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for a in range(0, n, step)]
     out: List[Tuple[int, int]] = []
-    for i in range(n):
-        ctr = 0
-        while True:
-            h = hashlib.sha512(
-                b"hotproofs_tpu/gen/" + spec.name.encode() + b"/" + label
-                + i.to_bytes(8, "little") + ctr.to_bytes(4, "little")
-            ).digest()
-            x = int.from_bytes(h, "little") % p
-            y = _sqrt_mod((x * x * x + spec.b) % p, p)
-            if y is not None:
-                out.append((x, min(y, p - y)))
-                break
-            ctr += 1
+    try:
+        for w in workers:
+            text, err = w.communicate()
+            if w.returncode != 0:
+                raise RuntimeError(f"generator worker failed: {err[-2000:]}")
+            out.extend((int(x, 16), int(y, 16)) for x, y in
+                       (line.split() for line in text.splitlines()))
+    finally:
+        for w in workers:
+            if w.poll() is None:
+                w.kill()
+                w.wait()
+    if len(out) != n:
+        raise RuntimeError(f"generator workers gave {len(out)} of {n}")
     return out

@@ -83,14 +83,27 @@ class FieldSpec:
         return int_to_limbs(x % self.p)
 
     def batch_to_limbs(self, xs: Sequence[int]) -> np.ndarray:
+        """(n, 32) canonical digits of ints reduced mod p (one byte
+        string for the batch)."""
         if len(xs) == 0:
             return np.zeros((0, N_LIMBS), np.int32)
-        return np.stack([self.to_limbs(int(x)) for x in xs])
+        p = self.p
+        raw = b"".join((int(x) % p).to_bytes(N_LIMBS, "little") for x in xs)
+        return np.frombuffer(raw, np.uint8).astype(np.int32).reshape(
+            -1, N_LIMBS)
 
     def limbs_to_ints(self, arr) -> np.ndarray:
         arr = np.asarray(arr)
         flat = arr.reshape(-1, arr.shape[-1])
-        out = np.array([limbs_to_int(row) for row in flat], dtype=object)
+        if flat.size and flat.min() >= 0 and flat.max() <= LIMB_MASK:
+            raw = flat.astype(np.uint8).tobytes()
+            w = flat.shape[-1]
+            vals = [int.from_bytes(raw[i:i + w], "little")
+                    for i in range(0, len(raw), w)]
+        else:       # digits outside a byte: sum them with their weights
+            vals = [limbs_to_int(row) for row in flat]
+        out = np.empty(len(vals), dtype=object)
+        out[:] = vals
         return out.reshape(arr.shape[:-1])
 
     def to_mont_int(self, x: int) -> int:

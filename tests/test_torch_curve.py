@@ -91,6 +91,18 @@ def test_select_and_identity():
         C.pt_to_affine_host(spec, P)[0::2]
 
 
+@pytest.mark.parametrize("name", ["pallas", "vesta", "bn254", "grumpkin"])
+def test_pooled_generator_derivation_matches_reference_and_serial(name):
+    """The derivation split over worker processes concatenates to the
+    serial derivation and to the reference's, index for index."""
+    spec = C.CURVES[name]
+    label, n = b"pooled-" + name.encode(), 300
+    pooled = C._derive_pooled(spec, label, n, 4)
+    serial = C.H2C.derive_range(spec.name, spec.base.p, spec.b, label, 0, n)
+    assert pooled == serial == RC.derive_generators(RC.CURVES[name], label, n)
+    assert all(C.host_on_curve(spec, pt) for pt in pooled[:8])
+
+
 def test_derive_generators_matches_reference():
     assert C.derive_generators(C.PALLAS, b"toy", 8) == \
         RC.derive_generators(RC.PALLAS, b"toy", 8)

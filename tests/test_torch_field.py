@@ -127,3 +127,27 @@ def test_public_mul_dispatch_broadcast_and_strides(name):
         assert got.shape == batch.shape and got.dtype == torch.int32
         assert np.array_equal(got.reshape(48, 32).numpy(),
                               np.asarray(RF.jitted(op, rspec)(a_np)))
+
+
+@pytest.mark.parametrize("name", ["pallas_base", "bn254_scalar"])
+def test_batch_limb_conversions_match_the_per_element_loop(name):
+    """batch_to_limbs and limbs_to_ints (one byte string a batch) against
+    the per-element int_to_limbs / limbs_to_int loop they replaced and the
+    reference's spec: values past p and negative ones reduce, and digits
+    outside a byte still sum with their weights."""
+    spec, rspec = F.FIELDS[name], RF.FIELDS[name]
+    rng = np.random.default_rng(7)
+    xs = [int.from_bytes(rng.bytes(33), "little") for _ in range(200)] \
+        + [0, 1, spec.p - 1, spec.p, spec.p + 5, -3, -spec.p - 1]
+    got = spec.batch_to_limbs(xs)
+    want = np.stack([F.int_to_limbs(x % spec.p) for x in xs])
+    assert got.dtype == np.int32 and np.array_equal(got, want)
+    assert np.array_equal(got, rspec.batch_to_limbs(xs))
+    back = spec.limbs_to_ints(got.reshape(3, -1, F.N_LIMBS)[:, :69])
+    loop = [F.limbs_to_int(r) for r in got.reshape(3, -1, F.N_LIMBS)[:, :69]
+            .reshape(-1, F.N_LIMBS)]
+    assert back.shape == (3, 69) and list(back.ravel()) == loop
+    wide = got[:10].astype(np.int64) * 300 - 7       # not digits of a byte
+    assert list(spec.limbs_to_ints(wide)) == \
+        [F.limbs_to_int(r) for r in wide] == list(rspec.limbs_to_ints(wide))
+    assert spec.batch_to_limbs([]).shape == (0, F.N_LIMBS)

@@ -14,11 +14,24 @@ import numpy as np
 import pytest
 import torch
 
+from hotproofs_tpu.circuits import bignat_gadget as R_BN
 from hotproofs_tpu.circuits import blake3_nova as R_nova
+from hotproofs_tpu.circuits import ec_gadget as R_EC
+from hotproofs_tpu.circuits import gadgets as R_g
+from hotproofs_tpu.circuits import nova_augmented as R_NA
+from hotproofs_tpu.circuits import poseidon_gadget as R_PG
+from hotproofs_tpu.circuits import dsl as R_dsl
+from hotproofs_tpu.ops import poseidon as R_P
 from hotproofs_tpu.core import blake3_ref as R_b3
 from hotproofs_tpu.core import native as R_native
 from hotproofs_tpu.core import native_ff as R_native_ff
+from hotproofs_tpu_torch.circuits import bignat_gadget as BN
 from hotproofs_tpu_torch.circuits import blake3_nova as nova
+from hotproofs_tpu_torch.circuits import dsl
+from hotproofs_tpu_torch.circuits import ec_gadget as EC
+from hotproofs_tpu_torch.circuits import gadgets as g
+from hotproofs_tpu_torch.circuits import nova_augmented as NA
+from hotproofs_tpu_torch.circuits import poseidon_gadget as PG
 from hotproofs_tpu_torch.core import blake3_ref as b3
 from hotproofs_tpu_torch.core import native, native_ff
 from hotproofs_tpu_torch.models import chunk_prover as CP
@@ -32,6 +45,11 @@ from hotproofs_tpu_torch.tools import wsum_affine as WA
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "hotproofs_tpu_torch").rglob("*.py")) \
     + [REPO / "chip_smoke.py"]
+# The recursive SNARK's modules and their circuits (the port's copies).
+RECURSIVE_FILES = [REPO / "hotproofs_tpu_torch" / f for f in (
+    "circuits/bignat_gadget.py", "circuits/ec_gadget.py",
+    "circuits/poseidon_gadget.py", "circuits/nova_augmented.py",
+    "nova/recursive.py")]
 
 
 def _foreign(name: str) -> bool:
@@ -54,9 +72,14 @@ def test_no_import_of_jax_or_the_reference(path):
             f"{path.relative_to(REPO)}:{node.lineno} imports {names}"
 
 
+def test_the_recursive_modules_are_checked():
+    assert all(f in PORT_FILES for f in RECURSIVE_FILES)
+
+
 _IMPORTS = r"""
 import sys
 import hotproofs_tpu_torch.models.chunk_prover
+import hotproofs_tpu_torch.nova.recursive
 import hotproofs_tpu_torch.tools.msm_designs
 import hotproofs_tpu_torch.tools.field_mul
 import hotproofs_tpu_torch.tools.wsum_affine
@@ -140,6 +163,105 @@ def test_blake3_nova_circuit_matches_the_reference():
     assert [(s.name, s.start, s.length, s.role) for s in layout.segments] \
         == [(s.name, s.start, s.length, s.role)
             for s in ref_layout.segments]
+
+
+# Small circuits over each of the four circuit copies the recursive SNARK
+# adds, built once with the port's modules and once with the reference's:
+# (circuit, its field, its inputs) from (gadgets, copy, poseidon) modules.
+def _bignat_case(gm, BNm, Pm):
+    q, m = C.PALLAS.scalar.p, C.VESTA.scalar.p
+    rng = np.random.default_rng(21)
+    a, b = (int.from_bytes(rng.bytes(32), "little") % m for _ in range(2))
+
+    def circ(ctx):
+        out = ctx.declare_output("out", 2 * BNm.N_LIMBS)
+        an = BNm.BigNat(list(ctx.declare_input("a", BNm.N_LIMBS, False)))
+        bn = BNm.BigNat(list(ctx.declare_input("b", BNm.N_LIMBS, False)))
+        BNm.assert_less_than_m(ctx, an, m)
+        r = BNm.mul_mod(ctx, m, an, bn)
+        s_ = BNm.add_mod(ctx, m, r, bn)
+        for o, v in zip(out, r.limbs + s_.limbs):
+            ctx.bind(o, v)
+
+    return circ, q, {"a": BNm.limbs_of_int(a), "b": BNm.limbs_of_int(b)}
+
+
+def _ec_case(gm, ECm, Pm):
+    spec = C.PALLAS
+    p, b3 = spec.base.p, 3 * spec.b % spec.base.p
+    (x1, y1), (x2, y2) = C.derive_generators(spec, b"boundary-ec", 2)
+    k = int.from_bytes(np.random.default_rng(22).bytes(8), "little")
+
+    def circ(ctx):
+        out = ctx.declare_output("out", 9)
+        a = ctx.declare_input("a", 2, public=False)
+        b = ctx.declare_input("b", 2, public=False)
+        kk = ctx.declare_input("k", 1, public=False)
+        pa, pb = (a[0], a[1], 1), (b[0], b[1], 1)
+        s_ = ECm.add(ctx, b3, pa, pb)
+        d = ECm.double(ctx, b3, s_)
+        km = ECm.scalar_mul(ctx, b3, gm.tobits(ctx, kk[0], 64, name="kb"),
+                            pb)
+        ECm.assert_on_curve(ctx, spec.b, pa)
+        for o, v in zip(out, list(s_) + list(d) + list(km)):
+            ctx.bind(o, v)
+
+    return circ, p, {"a": [x1, y1], "b": [x2, y2], "k": [k]}
+
+
+def _poseidon_case(gm, PGm, Pm):
+    q = C.PALLAS.scalar.p
+    spec = Pm.make_spec(C.PALLAS.scalar.name)
+    vals = [int.from_bytes(np.random.default_rng(23 + i).bytes(32),
+                           "little") % q for i in range(5)]
+
+    def circ(ctx):
+        out = ctx.declare_output("out", 2)
+        x = ctx.declare_input("x", 5, public=False)
+        sp = PGm.SpongeGadget(ctx, spec, 7)
+        sp.absorb(list(x))
+        h1 = sp.squeeze()
+        sp.absorb([h1, x[0]])
+        ctx.bind(out[0], h1)
+        ctx.bind(out[1], sp.squeeze())
+
+    return circ, q, {"x": vals}
+
+
+def _augmented_case(gm, NAm, Pm):
+    """The secondary augmented circuit (Pallas instances folded over F_p)
+    at its base step: k_prev = 0, default instances, no T."""
+    cur1, cur2 = C.PALLAS, C.VESTA
+    p, q = cur2.scalar.p, cur1.scalar.p
+    vk = int.from_bytes(np.random.default_rng(24).bytes(31), "little")
+    circ = NAm.make_augmented_circuit(Pm.make_spec(cur2.scalar.name),
+                                      cur1.b, q, vk, 0, None,
+                                      fold_at_base=False)
+    zero = [0] * BN.N_LIMBS
+    inputs = {"k_prev": [0], "U_cw": [0, 0, 1], "U_ce": [0, 0, 1],
+              "U_u": zero, "U_x0": zero, "U_x1": zero, "u_cw": [0, 0, 1],
+              "u_x0": zero, "u_x1": zero, "T_cw": [0, 0, 1]}
+    return circ, p, inputs
+
+
+@pytest.mark.parametrize("case,ours,ref", [
+    (_bignat_case, (g, BN, P), (R_g, R_BN, R_P)),
+    (_ec_case, (g, EC, P), (R_g, R_EC, R_P)),
+    (_poseidon_case, (g, PG, P), (R_g, R_PG, R_P)),
+    (_augmented_case, (g, NA, P), (R_g, R_NA, R_P)),
+], ids=["bignat_gadget", "ec_gadget", "poseidon_gadget", "nova_augmented"])
+def test_recursive_circuit_copies_match_the_reference(case, ours, ref):
+    """Each circuit copy compiles to the reference's R1CS and evaluates to
+    the reference's witness on seeded inputs."""
+    circ, mod, inputs = case(*ours)
+    r_circ, r_mod, r_inputs = case(*ref)
+    r1cs, layout = dsl.compile_circuit(circ, mod)
+    r_r1cs, r_layout = R_dsl.compile_circuit(r_circ, r_mod)
+    assert _r1cs_digest(r1cs) == _r1cs_digest(r_r1cs)
+    w = dsl.eval_witness(circ, layout, inputs)
+    r_w = R_dsl.eval_witness(r_circ, r_layout, r_inputs)
+    assert [int(v) for v in w] == [int(v) for v in r_w]
+    assert r1cs.n_constraints > 0 and len(w) == r1cs.n_signals
 
 
 def test_entry_points_default_to_the_card(capsys):

@@ -1,0 +1,102 @@
+"""The toy recursive chains of the recursive fixtures
+(tests/data/torch_toy_recursive{,_oracle}_ref.json.gz): the reference tests'
+step z -> z^3 + 7 on Pasta, with real commitments or with the tests'
+commitment oracle. The reference side imports the JAX package inside its
+functions; the port side imports no JAX. It holds no test: the port's
+recursive tests, the card tests and chip_smoke.py's phase 10 import it."""
+
+import contextlib
+import gzip
+import hashlib
+import json
+import os
+
+DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+LABEL = b"test-recursive"
+CHAINS = {"toy": (False, 2), "oracle": (True, 3)}   # (oracle, n_steps)
+Z0 = [5]
+
+
+def toy_gadget(ctx, z_prev, extra, gadgets=None):
+    sq = gadgets.mul(ctx, z_prev[0], z_prev[0], name="sq")
+    cube = gadgets.mul(ctx, sq, z_prev[0], name="cube")
+    return [cube + 7]
+
+
+def toy_host(q):
+    return lambda z: [(pow(z[0], 3, q) + 7) % q]
+
+
+def ref_path(name: str) -> str:
+    suffix = "" if name == "toy" else "_oracle"
+    return os.path.join(DATA, f"torch_toy_recursive{suffix}_ref.json.gz")
+
+
+def load_ref(name: str) -> dict:
+    with gzip.open(ref_path(name), "rt") as f:
+        return json.load(f)
+
+
+@contextlib.contextmanager
+def oracle_commits(snark, C):
+    """The reference tests' commitment oracle: commit(v) = (sum v_i k_i)·G
+    with k_i = sha256("k%d" % i) mod q, homomorphic like Pedersen, one host
+    scalar multiplication; C is either package's ops.curve."""
+    import numpy as np
+    try:
+        for side in (snark.side1, snark.side2):
+            G = C.derive_generators(side.curve, b"fake-commit", 1)[0]
+            q = side.curve.scalar.p
+            ks = [int.from_bytes(hashlib.sha256(b"k%d" % i).digest(),
+                                 "little") % q
+                  for i in range(side.shape.n_vars)]
+
+            def commit(vec_canon, _side=side, _G=G, _ks=ks, _q=q):
+                vals = _side.spec.limbs_to_ints(np.asarray(vec_canon))
+                s_ = sum(int(v) * k for v, k in zip(vals, _ks)) % _q
+                return C.host_scalar_mul(_side.curve, s_, _G)
+
+            side.commit = commit
+        yield
+    finally:
+        for side in (snark.side1, snark.side2):
+            side.__dict__.pop("commit", None)
+
+
+def port_snark(curves=("pallas", "vesta"), label: bytes = LABEL,
+               device="cpu"):
+    """The port's RecursiveSNARK of the toy step on the cycle `curves`."""
+    from hotproofs_tpu_torch.circuits import gadgets as g
+    from hotproofs_tpu_torch.nova import recursive as R
+    from hotproofs_tpu_torch.ops import curve as C
+    cycle = tuple(C.CURVES[c] for c in curves)
+    return R.RecursiveSNARK(
+        lambda ctx, z, extra: toy_gadget(ctx, z, extra, g),
+        toy_host(cycle[0].scalar.p), arity=1, label=label, cycle=cycle,
+        device=device)
+
+
+def make_reference(name: str) -> dict:
+    """The JAX package's proof of chain `name`, as RecursiveProof.to_dict."""
+    from hotproofs_tpu.circuits import gadgets as g
+    from hotproofs_tpu.nova import recursive as R
+    from hotproofs_tpu.ops import curve as C
+    oracle, n_steps = CHAINS[name]
+    snark = R.RecursiveSNARK(
+        lambda ctx, z, extra: toy_gadget(ctx, z, extra, g),
+        toy_host(C.PALLAS.scalar.p), arity=1, label=LABEL)
+    ctx = oracle_commits(snark, C) if oracle else contextlib.nullcontext()
+    with ctx:
+        proof = snark.prove(Z0, n_steps=n_steps)
+        snark.verify(proof)
+    return proof.to_dict()
+
+
+if __name__ == "__main__":
+    # python tests/test_torch_recursive_fixtures.py {toy,oracle} OUT.json.gz
+    # (JAX_PLATFORMS=cpu PYTHONPATH=. ; the real-commitment chain compiles
+    # the reference's MSM on XLA:CPU, tens of minutes per width)
+    import sys
+    doc = make_reference(sys.argv[1])
+    with gzip.open(sys.argv[2], "wt") as f:
+        json.dump(doc, f)
