@@ -62,7 +62,7 @@ exit and no result line:
      all zero, that the segment runs gave them (exact equality);
   9. Spartan compression (nova/spartan.py), with the launch counts set to
      0 before it: the phase-4 prover's SpartanSystem set up (its matrix
-     tables built on the host or loaded from the disk cache, then laid out
+     tables built by h_tables or loaded from the disk cache, then laid out
      on the card with the key's bases at the IPAs' lengths), a second one
      that loads the tables, compress and verify_compressed of phase 4's
      proof with the time of each part, the IPA rounds and the sizes of
@@ -96,7 +96,25 @@ exit and no result line:
      msm_wsum and mont_mul against their plain versions on the inputs of
      the first commit and to_mont of each curve and shape, to_affine and
      scale16 on the first points of each key preparation, and the
-     m = 65,536 and 32,768 commits timed beside their bound.
+     m = 65,536 and 32,768 commits timed beside their bound;
+ 11. the compressed recursive proof (RecursiveSNARK.compress /
+     verify_compressed), with the launch counts set to 0 before it: the
+     phase-10 SNARK set up for compression on both sides (the matrix
+     tables by the h_tables kernel, each side timed), phase 10's BLAKE3
+     proof compressed (each Spartan argument's parts and IPA rounds) and
+     verified, the statement checked, both files' sizes, four tampers
+     refused (z_final, sp1.vA, an IPA L point of sp_u1, u1.X[0]), the
+     reference's toy proof compressed and verified (byte-equal to the
+     port's committed compressed proof, tests/data) and a BN254/Grumpkin
+     toy chain proved, compressed and verified; the launch counts of those
+     runs (h_tables and every kernel of the path must be > 0); one warm
+     Spartan argument (sp2) under torch.profiler (the card's busy time);
+     then
+     h_tables against its plain version on a seeded sixteenth of the rows
+     of each BLAKE3 side's call (and the whole call's output on those
+     rows), timed on the slice and whole beside its bound, and the kernel's
+     tables of phase 9's chunk circuit against the host fold_point loop;
+     the peak device memory.
 The last two lines are the kernels' JSON summary (with each kernel's
 bound: the least time the card could take for the work of its timed
 call) and the result line.
@@ -140,13 +158,14 @@ KERNELS = {
     "mont_mul_part": ("mont.cu", "tools/bench_pallas_parts.py:46"),
     "conv_mma": ("conv_mma.cu", "tools/bench_pallas_parts.py:74"),
     "scale16": ("points.cu", "hotproofs_tpu/ops/msm.py:62"),
+    "h_tables": ("tables.cu", "hotproofs_tpu/nova/spartan.py:427"),
 }
 MAIN = ("msm_bucket", "msm_merge", "msm_wsum", "to_affine",
         "mont_mul")                                            # phase 4
 DESIGNS = ("msm_chain", "msm_bucket_tsplit", "msm_bucket_signed")  # phase 6
 FIELD = ("mont_mul", "mont_mul_stage", "mont_mul_part", "conv_mma")  # phase 7
 COMPRESS = ("msm_bucket", "msm_merge", "msm_wsum", "to_affine", "mont_mul",
-            "scale16")                                         # phase 9
+            "scale16", "h_tables")                             # phase 9
 # Phase 9's fixtures: the reference's IVC and compressed proofs of two toy
 # chains (tests/data, made by the JAX package on the CPU), whose circuits
 # and stack tests/spartan_chains.py holds.
@@ -154,6 +173,12 @@ TESTS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
 SPARTAN_CHAINS = ("toy", "wide")
 RECURSIVE = ("msm_bucket", "msm_merge", "msm_wsum", "to_affine", "mont_mul",
              "scale16")                                        # phase 10
+REC_COMPRESS = ("h_tables", "msm_bucket", "msm_merge", "msm_wsum",
+                "to_affine", "mont_mul", "scale16")              # phase 11
+# Phase 11's check of h_tables against its plain version: a seeded
+# sixteenth of the rows of each call (rows are independent: one warp a
+# row), with the longest rows.
+TABLE_SLICE = 16
 # Phase 10's kernel checks of the key preparations: the first points of
 # each (to_affine's blocks and scale16's threads are independent, so a
 # slice gives the kernel's values on those points).
@@ -689,9 +714,12 @@ def compression_phase(prover, data, ci, proof, root, dev, note, stats,
     torch.cuda.reset_peak_memory_stats()
     t_phase = time.perf_counter()
 
-    # Setup: the tables of the blake3 circuit, from the disk cache when an
-    # earlier run left them, then on the card with the key's bases at the
-    # IPAs' lengths.
+    # Setup: the tables of the blake3 circuit by h_tables (a table file an
+    # earlier run cached is removed first), then on the card with the key's
+    # bases at the IPAs' lengths.
+    for name in os.listdir(CONFIG.cache_dir):
+        if name.startswith("torch_spartanH_"):
+            os.remove(os.path.join(CONFIG.cache_dir, name))
     MP.reset_launches()
     builds = counter("spartan/h_builds")
     t0 = time.perf_counter()
@@ -704,7 +732,7 @@ def compression_phase(prover, data, ci, proof, root, dev, note, stats,
     torch.cuda.synchronize()
     t_lay = time.perf_counter() - t0
     set_up = dict(MP.launches)
-    how = "built on the host" if counter("spartan/h_builds") > builds \
+    how = "built by h_tables" if counter("spartan/h_builds") > builds \
         else "loaded from the cache"
     nnz = sum(len(x.rows) for x in (sps.shape.A, sps.shape.B, sps.shape.C))
     say(tag, f"SpartanSystem (m = {sps.m}, nz = {sps.nz}, n_ipa_w = "
@@ -747,7 +775,7 @@ def compression_phase(prover, data, ci, proof, root, dev, note, stats,
         f"{k} {counts[k]}" for k in COMPRESS))
     for k in COMPRESS:
         require(counts[k] > 0, f"{k} was not launched in compression")
-    for k in ("scale16", "to_affine"):
+    for k in ("scale16", "to_affine", "h_tables"):
         require(counts[k] == set_up[k], f"compress and verify after setup "
                 f"launched {k} {counts[k] - set_up[k]} times: the IPA must "
                 "commit over the key's prepared bases")
@@ -758,7 +786,7 @@ def compression_phase(prover, data, ci, proof, root, dev, note, stats,
     say(tag, f"after setup: compress launched msm_bucket {buckets} times "
         f"({n_rounds} IPA rounds, each one J = 2 commit over the key's "
         "prepared bases, and the commitment to L); compress and verify "
-        "launched no scale16 and no to_affine")
+        "launched no scale16, to_affine or h_tables")
 
     with tempfile.TemporaryDirectory() as tmp:
         full, small = os.path.join(tmp, "p.json"), os.path.join(tmp, "c.json")
@@ -975,7 +1003,7 @@ def recursive_phase(prover, data, ci, root, dev, note, rate, smi) -> dict:
     BN254/Grumpkin, their launch counts, one warm prove profiled, then the
     kernels held against their plain versions on the phase's inputs and
     the new commit widths timed. Returns the launch counts of the
-    chains."""
+    chains and the BLAKE3 chain's proof."""
     import copy
     import tempfile
 
@@ -1176,7 +1204,303 @@ def recursive_phase(prover, data, ci, root, dev, note, rate, smi) -> dict:
     commit_times(seen, rate, tag, smi)
     say(tag, f"phase {time.perf_counter() - t_phase:.1f} s [{smi}]; peak "
         f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return counts
+    return counts, rp
+
+
+@contextlib.contextmanager
+def capturing_tables(seen: list):
+    """While active, keep in seen the inputs of every h_tables call."""
+    from hotproofs_tpu_torch.ops import tables as TB
+
+    h_tables = TB.h_tables
+
+    def rec(spec, csr, bases_lm, lpw):
+        seen.append((spec, csr, bases_lm, lpw))
+        return h_tables(spec, csr, bases_lm, lpw)
+
+    TB.h_tables = rec
+    try:
+        yield
+    finally:
+        TB.h_tables = h_tables
+
+
+def csr_rows(csr, rows: torch.Tensor):
+    """The CSR of `rows` (ascending) of csr, each row's nonzeros in order:
+    the kernel gives each row what it gives it within the whole."""
+    from hotproofs_tpu_torch.ops import tables as TB
+
+    rp = csr.row_ptr.to(torch.int64)
+    lens = rp[rows + 1] - rp[rows]
+    first = torch.cumsum(lens, 0) - lens
+    idx = torch.repeat_interleave(rp[rows], lens) + (
+        torch.arange(int(lens.sum()), device=rows.device)
+        - torch.repeat_interleave(first, lens))
+    i32 = lambda t: t.to(torch.int32).contiguous()
+    return TB.TableCSR(
+        row_ptr=i32(torch.cat([lens.new_zeros(1), torch.cumsum(lens, 0)])),
+        order=i32(torch.argsort(lens, descending=True, stable=True)),
+        cols=csr.cols[idx].contiguous(), mag=csr.mag[idx].contiguous(),
+        neg=csr.neg[idx].contiguous())
+
+
+def table_bound(csr, out: torch.Tensor, rate: float):
+    """(bound_ms, bound_by, what) of h_tables on csr: a mixed add per
+    nonzero digit and a complete add per distinct digit value of a row
+    beyond its first; the CSR read once, the base points the digits touch
+    (64 bytes each) read once, the tables written once."""
+    from hotproofs_tpu_torch.ops import tables as TB
+
+    mixed, joins, pts = TB.table_work(csr)
+    nb = nbytes(csr.row_ptr, csr.order, csr.cols, csr.mag, csr.neg, out) \
+        + 64 * pts
+    ms, by = bound(MONT_MIXED_ADD * mixed + MONT_ADD * joins, nb, rate)
+    return ms, by, (f"{mixed} mixed adds, {joins} joins, {pts} base points, "
+                    f"{csr.cols.shape[0]} nonzeros in {csr.rows} rows")
+
+
+def rec_compress_phase(prover, rp, root, dev, note, stats, bounds, rate,
+                       smi) -> dict:
+    """Phase 11: the compressed recursive proof. With the launch counts
+    set to 0: the phase-10 SNARK set up for compression on both sides
+    (the matrix tables by h_tables), phase 10's BLAKE3 recursive proof
+    compressed and verified, four tampers refused, the reference's toy
+    chain (real commits) compressed and verified (byte-equal to the
+    port's committed compressed proof where tests/data holds it), a
+    BN254/Grumpkin toy chain proved, compressed and verified. Then
+    h_tables against its plain version on a seeded sixteenth of the rows
+    of each call, against the host fold_point loop on phase 9's chunk
+    tables, and timed beside its bound. Returns the phase's launch
+    counts."""
+    import copy
+    import tempfile
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from hotproofs_tpu_torch.models import chunk_prover as CP
+    from hotproofs_tpu_torch.nova import recursive as R
+    from hotproofs_tpu_torch.nova import spartan as SP
+    from hotproofs_tpu_torch.ops import msm_pallas as MP
+    from hotproofs_tpu_torch.ops import tables as TB
+    from hotproofs_tpu_torch.utils import telemetry as T_
+    from hotproofs_tpu_torch.utils.config import CONFIG
+
+    if TESTS_DIR not in sys.path:
+        sys.path.append(TESTS_DIR)
+    import test_torch_recursive_fixtures as RC
+    from spartan_chains import host_tables
+
+    tag = "11 rec-compress"
+    counter = lambda k: T_.metrics.snapshot().get(k, 0)
+    seen: list = []
+    rs = prover.recursive
+    # Tables an earlier run cached on disk would skip the kernel.
+    for name in os.listdir(CONFIG.cache_dir):
+        if name.startswith("torch_spartanH_"):
+            os.remove(os.path.join(CONFIG.cache_dir, name))
+    MP.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+
+    with capturing_tables(seen):
+        for side in (rs.side1, rs.side2):
+            sps = rs._spartan(side)
+            t0 = time.perf_counter()
+            sps.preprocess_H()
+            torch.cuda.synchronize()
+            t_h = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            sps.setup()
+            torch.cuda.synchronize()
+            nnz = sum(len(getattr(side.shape, k).rows) for k in "ABC")
+            say(tag, f"{side.name} ({side.curve.name}, m = {sps.m}, nz = "
+                f"{sps.nz}, n_ipa_w = {sps.n_ipa_w}, nnz {nnz}): tables by "
+                f"h_tables in {t_h:.2f} s (to_affine and the host copy "
+                f"included); their {3 * sps.m} points and the key's bases "
+                f"at the IPAs' lengths laid out in "
+                f"{time.perf_counter() - t0:.2f} s [{smi}]")
+        say(tag, f"device memory after setup: "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+            f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+        # The main path: compress phase 10's proof, verify it.
+        rounds = counter("spartan/ipa_rounds")
+        t0 = time.perf_counter()
+        cp = rs.compress(rp.rec)
+        torch.cuda.synchronize()
+        t_c = time.perf_counter() - t0
+        for name, sp in (("sp1", cp.sp1), ("sp2", cp.sp2),
+                         ("sp_u1", cp.sp_u1)):
+            say(tag, f"{name}: " + ", ".join(
+                f"{k} {v:.3f} s" for k, v in rs.compress_times[name].items())
+                + "; IPA rounds L/W/E " + "/".join(
+                    str(len(ipa.Ls)) for ipa in (sp.ipa_L, sp.ipa_W,
+                                                 sp.ipa_E)))
+        say(tag, f"compress of the {cp.n_steps}-step recursive proof: "
+            f"{t_c:.2f} s, {counter('spartan/ipa_rounds') - rounds} IPA "
+            f"rounds [{smi}]")
+        t0 = time.perf_counter()
+        z = rs.verify_compressed(cp)
+        t_v = time.perf_counter() - t0
+        require(z == rp.rec.z_final, "verify_compressed returned another "
+                "z_final")
+        CP.check_statement(prover.modulus, cp.z0, cp.n_steps, rp.chunk_idx,
+                           rp.n_blocks, rp.leaf_depth, rp.total_depth)
+        require(CP._proof_root(z, rp, root) == root,
+                "the compressed proof's z_final gives another root")
+        say(tag, f"verify_compressed: {t_v:.2f} s; the statement checked "
+            f"by the caller, root {root.hex()[:16]}... [{smi}]")
+        with tempfile.TemporaryDirectory() as tmp:
+            full, small = (os.path.join(tmp, f) for f in ("r.json", "c.json"))
+            rp.rec.save(full)
+            cp.save(small)
+            say(tag, f"proof files: recursive {os.path.getsize(full)} bytes, "
+                f"compressed {os.path.getsize(small)} bytes")
+            require(json.dumps(R.CompressedRecursiveProof.load(small)
+                               .to_dict()) == json.dumps(cp.to_dict()),
+                    "the saved compressed proof did not read back")
+
+        def refused(what, change, want):
+            bad = copy.deepcopy(cp)
+            change(bad)
+            try:
+                rs.verify_compressed(bad)
+            except AssertionError as e:
+                require(want in str(e), f"{what}: refused as {e}")
+                say(tag, f"{what}: refused ({e})")
+            else:
+                require(False, f"a compressed recursive proof with {what} "
+                        "verified")
+
+        q = rs.q
+
+        def bump_L(b):
+            b.sp_u1.ipa_W.Ls[3] = b.sp_u1.ipa_W.Rs[3]
+
+        refused("z_final changed", lambda b: setattr(
+            b, "z_final", [(b.z_final[0] + 1) % q] + b.z_final[1:]),
+            "primary state hash mismatch")
+        refused("sp1.vA changed", lambda b: setattr(
+            b.sp1, "vA", (b.sp1.vA + 1) % q), "sum-check 1 final claim")
+        refused("an IPA L point of sp_u1 changed", bump_L,
+                "IPA opening of W failed")
+        refused("u1.X[0] changed", lambda b: setattr(
+            b.u1, "X", ((b.u1.X[0] + 1) % q, b.u1.X[1])),
+            "primary state hash mismatch")
+
+        # The toy chains: the reference's proof on Pasta, a fresh one on
+        # BN254/Grumpkin.
+        for cyc, label in ((("pallas", "vesta"), RC.LABEL),
+                           (("bn254", "grumpkin"), b"test-recursive-bn")):
+            run = f"toy {cyc[0]}/{cyc[1]}"
+            ts = RC.port_snark(cyc, label, device=dev)
+            if cyc[0] == "pallas":
+                tp = R.RecursiveProof.from_dict(RC.load_ref("toy"))
+            else:
+                tp = ts.prove(RC.Z0, n_steps=RC.CHAINS["toy"][1])
+            t0 = time.perf_counter()
+            tc = ts.compress(tp)
+            require(ts.verify_compressed(tc) == tp.z_final,
+                    f"the {run} compressed proof did not verify")
+            msg = f"{run}: compressed (tables and bases included) and " \
+                f"verified in {time.perf_counter() - t0:.1f} s"
+            if cyc[0] == "pallas" and os.path.exists(RC.compressed_path()):
+                with tempfile.TemporaryDirectory() as tmp:
+                    path = os.path.join(tmp, "c.json")
+                    tc.save(path)
+                    with open(path) as f, \
+                            gzip.open(RC.compressed_path(), "rt") as g:
+                        require(f.read() == g.read(),
+                                "the toy compressed proof differs from the "
+                                "committed one")
+                msg += "; byte-equal to the committed compressed proof " \
+                    "(tests/data)"
+            say(tag, msg + f" [{smi}]")
+    torch.cuda.synchronize()
+    counts = dict(MP.launches)
+    say(tag, "launches (setup, compress, verify, tampers, toy chains): "
+        + ", ".join(f"{k} {counts[k]}" for k in REC_COMPRESS))
+    for k in REC_COMPRESS:
+        require(counts[k] > 0, f"{k} was not launched in phase 11")
+
+    # One warm Spartan argument of the compress, sp2 (the secondary's, the
+    # smallest of the three), under the profiler: its device events alone,
+    # since key_averages over a whole compress's 200,000 launches with
+    # their host events takes minutes.
+    sp2_sys, i2 = rs._spartan(rs.side2), rs._instances(rp.rec)[1]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sp2_sys.prove_relaxed(i2, rp.rec.W2, rp.rec.E2)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in ev) / 1e3
+    require(busy > 0, "the profiler saw no device time")
+    top = sorted(ev, key=lambda e: e.self_device_time_total, reverse=True)
+    say(tag, f"profiled warm argument sp2: wall {wall:.1f} ms, device busy "
+        f"{busy:.1f} ms (idle share {1 - busy / wall:.3f}), "
+        f"{sum(e.count for e in ev)} device events; top: " + ", ".join(
+            f"{e.key[:36]} {e.self_device_time_total / 1e3:.1f} ms / "
+            f"{e.count}" for e in top[:6]) + f" [{smi}]")
+
+    # h_tables against its plain version on a slice of the rows of the
+    # BLAKE3 sides' calls, then timed whole and on the slice.
+    rng = np.random.default_rng(11)
+    for spec, csr, bl, lpw in seen[:2]:
+        full = TB.h_tables(spec, csr, bl, lpw)
+        n = (csr.row_ptr[1:] - csr.row_ptr[:-1]).to(torch.int64)
+        pick = rng.choice(csr.rows, csr.rows // TABLE_SLICE, replace=False)
+        rows = torch.unique(torch.cat([
+            torch.from_numpy(pick).to(dev),
+            torch.argsort(n, descending=True)[:8]]))
+        part = csr_rows(csr, rows)
+        got = TB.h_tables(spec, part, bl, lpw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = TB.h_tables_plain(spec, part, bl, lpw)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        note("h_tables", got, want)
+        note("h_tables", full[rows], want)
+        ms = cuda_ms(lambda: TB.h_tables(spec, part, bl, lpw), 3)
+        bnd = table_bound(part, got, rate)
+        ms_full = cuda_ms(lambda: TB.h_tables(spec, csr, bl, lpw), 3)
+        bnd_full = table_bound(csr, full, rate)
+        say(tag, f"h_tables == plain on {rows.shape[0]} rows of "
+            f"{spec.name}'s {csr.rows} (a seeded sixteenth and the 8 "
+            f"longest), and the whole call's rows equal the slice's: slice "
+            f"{ms:.3f} ms (plain {plain_ms:.1f} ms, bound {bnd[0]:.4f} ms "
+            f"by {bnd[1]}: {bnd[2]}); whole {ms_full:.3f} ms (bound "
+            f"{bnd_full[0]:.4f} ms by {bnd_full[1]}, "
+            f"{100 * bnd_full[0] / ms_full:.1f} % of it: {bnd_full[2]}) "
+            f"[{smi}]")
+        if spec.name == rs.side1.curve.name:
+            stats["h_tables"]["ms"] = ms
+            stats["h_tables"]["plain_ms"] = plain_ms
+            bounds["h_tables"] = bnd[:2]
+        del full, got, want
+
+    # The kernel against the host loop on phase 9's whole chunk tables.
+    sps9 = SP.SpartanSystem(prover.ivc)
+    t0 = time.perf_counter()
+    kern = sps9._build_H()
+    torch.cuda.synchronize()
+    t_k = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = host_tables(sps9.shape, sps9.ck, sps9.m)
+    t_host = time.perf_counter() - t0
+    for a, b in zip(kern, host):
+        note("h_tables", torch.from_numpy(a.astype(np.int32)),
+             torch.from_numpy(b.astype(np.int32)))
+    nnz = sum(len(getattr(sps9.shape, k).rows) for k in "ABC")
+    say(tag, f"phase 9's chunk tables ({nnz} nonzeros, m = {sps9.m}): "
+        f"h_tables + to_affine {t_k:.2f} s == the host fold_point loop "
+        f"{t_host:.1f} s, exactly [{smi}]")
+    say(tag, f"phase {time.perf_counter() - t_phase:.1f} s [{smi}]; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return {"h_tables": counts["h_tables"]}
 
 
 def field_phase(prover, dev, rng, note, stats, bounds) -> dict:
@@ -1596,7 +1920,11 @@ def main() -> int:
                                     stats, bounds, rate, smi))
 
     # -- 10. the recursive SNARK ---------------------------------------------
-    recursive_phase(prover, data, ci, root, dev, note, rate, smi)
+    _, rp = recursive_phase(prover, data, ci, root, dev, note, rate, smi)
+
+    # -- 11. the compressed recursive proof -----------------------------------
+    counts.update(rec_compress_phase(prover, rp, root, dev, note, stats,
+                                     bounds, rate, smi))
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": CSRC + src,

@@ -10,6 +10,7 @@
 #include "mont.cuh"
 #include "msm_designs.cuh"
 #include "points.cuh"
+#include "tables.cuh"
 
 using namespace hp;
 
@@ -282,6 +283,32 @@ void hc_scale16(const u32* consts, const u32* pts, u32* out, long long n,
   Consts c = load_consts(consts);
   for (long long i = 0; i < n; ++i)
     scale16_point(c, pts, out, n, i, windows);
+}
+
+// The matrix-table kernel (tables.cuh), one warp a row in `order`: each
+// lane's walk (table_lane), K3's lane schedule at G = 16 replayed as
+// hc_msm_wsum does, then lane 0 adds lane 16's half.
+void hc_h_tables(const u32* consts, const int* row_ptr, const int* order,
+                 const int* cols, const u32* mag, const int* neg,
+                 const u32* bases_lm, u32* out, int R, int B, int lpw) {
+  Consts c = load_consts(consts);
+  std::vector<Proj> lane(32), prev(32);
+  for (int wi = 0; wi < R; ++wi) {
+    const int row = order[wi];
+    for (int l = 0; l < 32; ++l)
+      table_lane(c, row_ptr, cols, mag, neg, bases_lm, B, lpw, row, l,
+                 lane[l]);
+    for (int off = 1; off < 16; off <<= 1) {
+      prev = lane;
+      for (int l = 0; l < 32; ++l)
+        if (l % 16 + off < 16) acc_add(c, lane[l], prev[l + off]);
+    }
+    for (int off = 8; off > 0; off >>= 1)
+      for (int l = 0; l < 32; ++l)
+        if (l % 16 < off) acc_add(c, lane[l], lane[l + off]);
+    acc_add(c, lane[0], lane[16]);
+    store_proj(out + (size_t)row * 3 * NW, 1, lane[0]);
+  }
 }
 
 }  // extern "C"

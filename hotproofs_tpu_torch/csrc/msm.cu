@@ -88,16 +88,6 @@ __global__ void __launch_bounds__(BUCKET_LANES)
               dig + t, list + t, cnt + t, BUCKET_LANES);
 }
 
-__device__ __forceinline__ void shfl_down_proj(const Proj& a, int off,
-                                               Proj& r) {
-#pragma unroll
-  for (int k = 0; k < NW; ++k) {
-    r.x[k] = __shfl_down_sync(0xffffffffu, a.x[k], off);
-    r.y[k] = __shfl_down_sync(0xffffffffu, a.y[k], off);
-    r.z[k] = __shfl_down_sync(0xffffffffu, a.z[k], off);
-  }
-}
-
 // Sums within groups of a merge block's threads: 5 shuffle levels in each
 // warp (lane i < off takes lane i + off), then the same over the warp sums
 // of each group of nw warps (nw = 1, 2 or MERGE_WARPS) in warp 0's first
@@ -191,18 +181,7 @@ __global__ void __launch_bounds__(WSUM_THREADS)
   const int v = (int)(gid % G);
   Proj acc;
   wsum_lane(c, reduced, S, J, j, v, acc);
-#pragma unroll 1
-  for (int off = 1; off < G; off <<= 1) {  // T_v = B_v + ... + B_S
-    Proj o;
-    shfl_down_proj(acc, off, o);
-    if (v + off < G) acc_add(c, acc, o);
-  }
-#pragma unroll 1
-  for (int off = G / 2; off > 0; off >>= 1) {  // sum of the T_v
-    Proj o;
-    shfl_down_proj(acc, off, o);
-    if (v < off) acc_add(c, acc, o);
-  }
+  wsum_lanes(c, acc, v, G);
   if (v == 0 && j < J) store_proj(out + (size_t)j * 3 * NW, 1, acc);
 }
 

@@ -258,6 +258,40 @@ HP_HD void wsum_lane(const Consts& c, const u32* reduced, int S, int J,
     pt_identity(c, r);
 }
 
+#ifdef __CUDACC__
+// r = lane (this + off)'s point, across the whole warp.
+__device__ __forceinline__ void shfl_down_proj(const Proj& a, int off,
+                                               Proj& r) {
+#pragma unroll
+  for (int k = 0; k < NW; ++k) {
+    r.x[k] = __shfl_down_sync(0xffffffffu, a.x[k], off);
+    r.y[k] = __shfl_down_sync(0xffffffffu, a.y[k], off);
+    r.z[k] = __shfl_down_sync(0xffffffffu, a.z[k], off);
+  }
+}
+
+// K3's schedule over the G lanes of a job (G divides 32; every lane of the
+// warp calls it): lane v holds B_{v+1} on entry; an inclusive suffix scan
+// over log2 G shuffle levels, then a halving tree over log2 G more, leaves
+// sum_v v * B_v on lane 0 of the job. Every add with the identity on one
+// side is skipped. The host replay is hc_msm_wsum.
+__device__ __forceinline__ void wsum_lanes(const Consts& c, Proj& acc, int v,
+                                           int G) {
+#pragma unroll 1
+  for (int off = 1; off < G; off <<= 1) {  // T_v = B_v + ... + B_S
+    Proj o;
+    shfl_down_proj(acc, off, o);
+    if (v + off < G) acc_add(c, acc, o);
+  }
+#pragma unroll 1
+  for (int off = G / 2; off > 0; off >>= 1) {  // sum of the T_v
+    Proj o;
+    shfl_down_proj(acc, off, o);
+    if (v < off) acc_add(c, acc, o);
+  }
+}
+#endif  // __CUDACC__
+
 // K4 in three phases over a block of AFFINE_THREADS threads, thread t
 // owning the AFFINE_PER_THREAD points i_k = b * AFFINE_BLOCK + k *
 // AFFINE_THREADS + t (k = 0, 1, ...; those < n), a warp's points

@@ -1,6 +1,6 @@
 """RecursiveSNARK: two-cycle augmented IVC with a verifier whose work does
-not grow with the chain (port of hotproofs_tpu/nova/recursive.py, without
-its compression, which is not ported yet).
+not grow with the chain (port of hotproofs_tpu/nova/recursive.py), and its
+compressed form, CompressedRecursiveProof.
 
 Every step folds the previous step's strict instances into running relaxed
 instances, and each side's augmented circuit (circuits/nova_augmented.py)
@@ -13,6 +13,13 @@ side's device (nova/fold.py, nova/r1cs.py), synthesizes the augmented
 witnesses on the host (the DSL's tape evaluator) and commits them with the
 side's Pedersen key: msm_bucket, msm_merge and msm_wsum on the card, their
 plain versions on the CPU. Proofs are the reference's JSON, byte for byte.
+
+compress replaces the proof's witness vectors by three Spartan arguments
+(nova/spartan.py), one per relaxed claim: (U1, W1, E1) on the primary,
+(U2, W2, E2) on the secondary and the last strict primary instance u1 taken
+as relaxed (u = 1, E = 0, comm_E the identity). Each side's SpartanSystem
+is made once, over the side's key and the vk as its pp digest; its matrix
+tables come from the h_tables kernel (ops/tables.py).
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from . import serial
 from .ivc import check as _check
 from .pedersen import CommitmentKey
 from .r1cs import ShapeDevice, matvec_all
+from .spartan import SpartanProof, SpartanSystem
 from .transcript import digest_of
 
 Affine = Optional[Tuple[int, int]]
@@ -160,6 +168,7 @@ class Side:
         self.spec = self.shape.field
         self._ck: Optional[CommitmentKey] = None
         self._compiled_eval = None
+        self.spartan: Optional[SpartanSystem] = None   # made by compress
         self.times: Dict[str, float] = {}    # ms a part, since last reset
         self.reset()
 
@@ -343,6 +352,55 @@ class RecursiveProof:
         return RecursiveProof.from_dict(serial.load("recursive_proof", path))
 
 
+@dataclass
+class CompressedRecursiveProof:
+    """A RecursiveProof whose witness vectors are replaced by three Spartan
+    arguments: sp1 for (U1, W1, E1), sp2 for (U2, W2, E2), sp_u1 for the
+    last strict primary instance taken as relaxed (u = 1, E = 0)."""
+
+    n_steps: int
+    z0: List[int]
+    z_final: List[int]
+    U1: RelaxedHost
+    U2: RelaxedHost
+    u1: StrictHost
+    sp1: SpartanProof
+    sp2: SpartanProof
+    sp_u1: SpartanProof
+
+    def to_dict(self) -> dict:
+        return {
+            "n_steps": int(self.n_steps),
+            "z0": serial.enc_ints(self.z0),
+            "z_final": serial.enc_ints(self.z_final),
+            "U1": _enc_relaxed(self.U1), "U2": _enc_relaxed(self.U2),
+            "u1": {"cw": serial.enc_point(self.u1.comm_W),
+                   "x": serial.enc_ints(self.u1.X)},
+            "sp1": self.sp1.to_dict(), "sp2": self.sp2.to_dict(),
+            "sp_u1": self.sp_u1.to_dict(),
+        }
+
+    @staticmethod
+    def from_dict(d: dict) -> "CompressedRecursiveProof":
+        return CompressedRecursiveProof(
+            n_steps=int(d["n_steps"]), z0=serial.enc_ints(d["z0"]),
+            z_final=serial.enc_ints(d["z_final"]),
+            U1=_dec_relaxed(d["U1"]), U2=_dec_relaxed(d["U2"]),
+            u1=StrictHost(comm_W=serial.dec_point(d["u1"]["cw"]),
+                          X=tuple(serial.enc_ints(d["u1"]["x"]))),
+            sp1=SpartanProof.from_dict(d["sp1"]),
+            sp2=SpartanProof.from_dict(d["sp2"]),
+            sp_u1=SpartanProof.from_dict(d["sp_u1"]))
+
+    def save(self, path: str) -> None:
+        serial.dump("compressed_recursive_proof", self.to_dict(), path)
+
+    @staticmethod
+    def load(path: str) -> "CompressedRecursiveProof":
+        return CompressedRecursiveProof.from_dict(
+            serial.load("compressed_recursive_proof", path))
+
+
 def _mat_bytes(r1cs) -> bytes:
     """The bytes the vk hashes for one shape: each matrix's (row, col,
     value mod 2^256) as 4 + 4 + 32 little-endian bytes per entry, then
@@ -391,6 +449,8 @@ class RecursiveSNARK:
         self.pspec1 = P.make_spec(cur1.scalar.name)
         self.pspec2 = P.make_spec(cur2.scalar.name)
         self.timings: List[Dict[str, float]] = []   # ms a step, last prove
+        # seconds of each Spartan argument's parts, last compress
+        self.compress_times: Dict[str, Dict[str, float]] = {}
         # seconds of __init__'s parts: the probes' compile, the vk's bytes
         # and digest, the two sides (circuits, shapes)
         self.setup_times: Dict[str, float] = {}
@@ -505,6 +565,74 @@ class RecursiveSNARK:
             W1=s1.ints(s1.acc_dev.W), E1=s1.ints(s1.acc_dev.E),
             W2=s2.ints(s2.acc_dev.W), E2=s2.ints(s2.acc_dev.E),
             w1=s1.ints(pend["dev"]["canon"], mont=False))
+
+    # -- compression ------------------------------------------------------------
+    def _spartan(self, side: Side) -> SpartanSystem:
+        """The side's SpartanSystem over its shape and key, with the vk as
+        its pp digest (made once)."""
+        if side.spartan is None:
+            side.spartan = SpartanSystem(shape=side.shape, curve=side.curve,
+                                         ck=side.ck, pp_digest=self.vk)
+        return side.spartan
+
+    def setup_compressed(self) -> None:
+        """Prepare what compress and verify_compressed read, on both sides:
+        the matrix tables (h_tables, or the disk cache) laid out as MSM
+        bases, and the keys' bases at the IPAs' lengths."""
+        for side in (self.side1, self.side2):
+            self._spartan(side).setup()
+
+    @staticmethod
+    def _instances(proof) -> Tuple[NF.AccumulatorInstance, ...]:
+        """The three relaxed instances of a final state: U1, U2, and the
+        strict u1 with u = 1 and comm_E the identity."""
+        rel = lambda U: NF.AccumulatorInstance(u=U.u, X=list(U.X),
+                                               comm_W=U.comm_W,
+                                               comm_E=U.comm_E)
+        return rel(proof.U1), rel(proof.U2), NF.AccumulatorInstance(
+            u=1, X=list(proof.u1.X), comm_W=proof.u1.comm_W, comm_E=None)
+
+    def compress(self, proof: RecursiveProof) -> CompressedRecursiveProof:
+        """Drop every witness vector: three Spartan arguments instead. The
+        seconds of each argument's parts are left in compress_times."""
+        i1, i2, iu = self._instances(proof)
+        s1, s2 = self.side1, self.side2
+        self.compress_times = {}
+
+        def prove(name, side, inst, W, E):
+            sps = self._spartan(side)
+            sp = sps.prove_relaxed(inst, W, E)
+            self.compress_times[name] = dict(sps.timings)
+            return sp
+
+        sp1 = prove("sp1", s1, i1, proof.W1, proof.E1)
+        sp2 = prove("sp2", s2, i2, proof.W2, proof.E2)
+        sp_u1 = prove("sp_u1", s1, iu, proof.w1[1 + s1.shape.n_io:],
+                      [0] * s1.shape.n_cons)
+        return CompressedRecursiveProof(
+            n_steps=proof.n_steps, z0=list(proof.z0),
+            z_final=list(proof.z_final), U1=proof.U1, U2=proof.U2,
+            u1=proof.u1, sp1=sp1, sp2=sp2, sp_u1=sp_u1)
+
+    def verify_compressed(self, cp: CompressedRecursiveProof) -> List[int]:
+        """The two state-hash bindings, then the three Spartan arguments
+        (none of which reads a matrix or a witness); returns z_final.
+        Raises AssertionError on a proof that does not verify."""
+        _check(cp.n_steps >= 1, "no step")
+        q = self.q
+        z0 = [int(v) % q for v in cp.z0]
+        z_final = [int(v) % q for v in cp.z_final]
+        h1 = state_hash_host(self.pspec1, self.vk, cp.n_steps, z0, z_final,
+                             cp.U2)
+        _check(cp.u1.X[0] == h1, "primary state hash mismatch")
+        h2 = state_hash_host(self.pspec2, self.vk, cp.n_steps, None, None,
+                             cp.U1)
+        _check(cp.u1.X[1] == h2, "secondary state hash mismatch")
+        i1, i2, iu = self._instances(cp)
+        self._spartan(self.side1).verify_relaxed(i1, cp.sp1)
+        self._spartan(self.side2).verify_relaxed(i2, cp.sp2)
+        self._spartan(self.side1).verify_relaxed(iu, cp.sp_u1)
+        return z_final
 
     # -- verification -----------------------------------------------------------
     def _check_relaxed(self, side: Side, U: RelaxedHost, W: List[int],

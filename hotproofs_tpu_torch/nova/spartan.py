@@ -24,9 +24,10 @@ round commits L and R by one J = 2 MSM over the key's own prepared bases
 (pedersen.py) with the scalars weighted by the products of the challenges
 that the fold would have applied (_IPA.prove_weighted), and one mont_mul
 updates the weights. Each IPA round reads L and R back to the host for the
-transcript. The H tables are built on the host (the native curve helper)
-once per pp digest and cached on disk, then scaled onto the device once
-per SpartanSystem (setup() prepares them and the key's bases).
+transcript. The H tables are built on the device by the h_tables kernel
+(ops/tables.py) over the key's prepared bases once per pp digest and cached
+on disk, then scaled into MSM bases once per SpartanSystem (setup()
+prepares them and the key's bases).
 """
 
 from __future__ import annotations
@@ -41,10 +42,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..core import native_ff
 from ..ops import curve as C
 from ..ops import field as F
 from ..ops import msm_pallas as MP
+from ..ops import tables as TB
 from ..utils import telemetry as T_
 from ..utils.config import CONFIG
 from . import serial
@@ -415,7 +416,7 @@ class SpartanSystem:
         """Per-row matrix point tables H_M[x] = sum_y M[x, y] G_y for M in
         (A, B, C), padded to m rows with the identity: host (x, y, inf)
         arrays, x and y Montgomery digits (3, m, 32), inf (3, m). Built on
-        the host through the native curve helper and cached on disk as
+        the shape's device by h_tables (_build_H) and cached on disk as
         .cache/torch_spartanH_{curve}_{m}_{pp digest hex}.npz with the full
         digest, m, the curve and the shapes, each checked on load: a file
         that disagrees is rebuilt, never trusted (the pp digest binds the
@@ -441,37 +442,30 @@ class SpartanSystem:
         self._H = got
         return got
 
+    def _prepare_key(self) -> None:
+        """The key's prepared bases at each length the tables and IPAs read
+        (the largest first, so the others are its prefixes)."""
+        for n in sorted({self.nz, self.n_ipa_w, self.n_ipa_e}, reverse=True):
+            self.ck.bases_lm(n, 256)
+
     def _build_H(self):
-        fs, cv = self.fspec, self.curve
-        fb = cv.base
-        rinv_s = pow(fs.r_mod_p, fs.p - 2, fs.p)
-        rinv_b = pow(fb.r_mod_p, fb.p - 2, fb.p)
-        g = self.ck.gens_affine[: self.shape.n_vars]
-        gens = [(int(x) * rinv_b % fb.p, int(y) * rinv_b % fb.p)
-                for x, y in zip(fb.limbs_to_ints(g[:, 0]),
-                                fb.limbs_to_ints(g[:, 1]))]
-        use_native = native_ff.available()
-        xs = np.zeros((3, self.m, F.N_LIMBS), np.uint8)
-        ys = np.zeros((3, self.m, F.N_LIMBS), np.uint8)
-        inf = np.ones((3, self.m), bool)
-        for mi, mat in enumerate((self.shape.A, self.shape.B, self.shape.C)):
-            H: dict = {}
-            vals = fs.limbs_to_ints(mat.vals_mont)
-            for k in range(len(mat.rows)):
-                r_, c_ = int(mat.rows[k]), int(mat.cols[k])
-                v_ = int(vals[k]) * rinv_s % fs.p
-                if use_native:
-                    H[r_] = native_ff.fold_point(cv, H.get(r_), gens[c_], v_)
-                else:
-                    H[r_] = C.host_add(cv, H.get(r_),
-                                       C.host_scalar_mul(cv, v_, gens[c_]))
-            for r_, pt in H.items():
-                if pt is None:
-                    continue
-                inf[mi, r_] = False
-                xs[mi, r_] = F.int_to_limbs(fb.to_mont_int(pt[0]))
-                ys[mi, r_] = F.int_to_limbs(fb.to_mont_int(pt[1]))
-        return xs, ys, inf
+        """The tables by ops/tables.h_tables (the kernel on the card, its
+        plain version on the CPU) over the key's prepared bases at nz, which
+        hold the first n_vars generators, then to_affine: host (x, y, inf)
+        as preprocess_H returns them."""
+        m, cv = self.m, self.curve
+        self._prepare_key()
+        csr = TB.table_csr(self.fspec, [
+            (d.rows, d.cols, d.vals)
+            for d in (self.shape.dev[k] for k in ("A", "B", "C"))], m)
+        _, lpw, _, _ = MP.plan(self.nz, 256)
+        pts = TB.h_tables(cv, csr, self.ck.bases_lm(self.nz, 256), lpw)
+        x, y = MP.to_affine_words(cv, *(pts[:, c].contiguous()
+                                        for c in range(3)))
+        host = lambda w: F.words_to_digits(w).reshape(
+            3, m, F.N_LIMBS).cpu().numpy().astype(np.uint8)
+        return host(x), host(y), (pts[:, 2] == 0).all(-1).reshape(
+            3, m).cpu().numpy()
 
     def H_bases(self):
         """The three tables as one MSM base array of 3m points on the
@@ -495,11 +489,11 @@ class SpartanSystem:
     def setup(self) -> None:
         """Prepare on the device what compress and verify read: the tables'
         bases and the key's prepared bases at each IPA length (the largest
-        first, so the others are its prefixes). scale16 and to_affine run
-        here and in no later compress or verify."""
+        first, so the others are its prefixes). h_tables (unless the disk
+        cache holds the tables), scale16 and to_affine run here and in no
+        later compress or verify."""
+        self._prepare_key()
         self.H_bases()
-        for n in sorted({self.nz, self.n_ipa_w, self.n_ipa_e}, reverse=True):
-            self.ck.bases_lm(n, 256)
 
     def _com_L(self, eq_rx: List[int], cA: int, cB: int, cC: int) -> Affine:
         """Verifier-side commitment to the L vector, computed WITHOUT the

@@ -27,7 +27,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
 SOURCES = ("field.cuh", "curve.cuh", "msm.cuh", "msm.cu", "msm_designs.cuh",
            "msm_designs.cu", "mont.cuh", "mont.cu", "conv_mma.cu",
-           "points.cuh", "points.cu")
+           "points.cuh", "points.cu", "tables.cuh", "tables.cu")
 UNITS = tuple(s for s in SOURCES if s.endswith(".cu"))
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
@@ -109,6 +109,7 @@ def lib() -> ctypes.CDLL:
                 "hp_mont_mul_part": [P, P, P, P, LL, I, P],
                 "hp_conv_mma": [P, P, P, LL, P],
                 "hp_scale16": [P, P, P, LL, I, P],
+                "hp_h_tables": [P, P, P, P, P, P, P, P, I, I, I, P],
             }.items():
                 fn = getattr(handle, name)
                 fn.argtypes = args
@@ -130,7 +131,7 @@ def check(err: int, name: str) -> None:
 launches: Dict[str, int] = {name: 0 for name in (
     "msm_bucket", "msm_merge", "msm_wsum", "to_affine", "msm_chain",
     "msm_bucket_tsplit", "msm_bucket_signed", "mont_mul", "mont_mul_stage",
-    "mont_mul_part", "conv_mma", "scale16")}
+    "mont_mul_part", "conv_mma", "scale16", "h_tables")}
 
 
 # `d[k] += 1` is a read, an add and a store, which another thread's launch

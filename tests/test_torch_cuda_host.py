@@ -509,3 +509,48 @@ def test_scale16_body_vs_plain_and_host(hc, name):
     for w in range(w4):
         want += [C.host_scalar_mul(spec, 16 ** w, p) for p in pts]
     assert got == want
+
+
+@pytest.mark.parametrize("name", ["pallas", "bn254"])
+def test_h_tables_body_vs_plain_and_host(hc, name):
+    """h_tables' per-lane walks, K3's lane schedule and the halves' add
+    under g++ == its plain version bit for bit, on seeded rows of random
+    full-width, small, negated and zero values over a 16-generator key
+    (rows of 0, 1, 2 and 61 nonzeros, an empty row last); the affine
+    tables == sum v G on the host."""
+    from hotproofs_tpu_torch.ops import tables as TB
+    spec = C.CURVES[name]
+    fs, n = spec.scalar, 16
+    rng = np.random.default_rng(3)
+    gens = _rand_points(spec, rng, n)
+    b, lpw, w4, _ = MP.plan(n, 256)
+    xa, ya = MP.scaled_affine_host(spec, gens, w4)
+    bl = MP.lane_major(MP.bases_tm(torch.from_numpy(xa),
+                                   torch.from_numpy(ya), n, 256))
+    lens = [0, 1, 2, 61] + [int(k) for k in rng.integers(0, 9, 28)] + [0]
+    rows = np.repeat(np.arange(len(lens)), lens)
+    cols = rng.integers(0, n, len(rows))
+    vals = [int.from_bytes(rng.bytes(32), "little") % fs.p
+            for _ in range(len(rows))]
+    for i, v in zip(range(0, len(vals), 5), (1, fs.p - 1, 0, 15, fs.p - 16,
+                                              (fs.p - 1) // 2,
+                                              (fs.p + 1) // 2)):
+        vals[i] = v
+    mont = F.to_h16(F.to_mont(fs, F.from_ints(fs, vals)))
+    R = len(lens)
+    csr = TB.table_csr(fs, [(torch.from_numpy(rows), torch.from_numpy(cols),
+                             mont)], R)
+    out = np.zeros((R, 3, 8), np.uint32)
+    u32 = lambda t: np.ascontiguousarray(t.numpy().view(np.uint32))
+    hc.hc_h_tables(_p(MP.consts_words(spec)), _p(csr.row_ptr.numpy()),
+                   _p(csr.order.numpy()), _p(csr.cols.numpy()),
+                   _p(u32(csr.mag)), _p(csr.neg.numpy()), _p(u32(bl)),
+                   _p(out), R, b, lpw)
+    plain = TB.h_tables_plain(spec, csr, bl, lpw)
+    assert np.array_equal(out.view(np.int32), plain.numpy())
+    got = C.pt_to_affine_host(spec, MP.words_point(plain))
+    want = [None] * R
+    for r, c, v in zip(rows, cols, vals):
+        want[r] = C.host_add(spec, want[r],
+                             C.host_scalar_mul(spec, v, gens[c]))
+    assert got == want and want[0] is None and want[-1] is None

@@ -3,7 +3,12 @@ tests' toy chain on Pasta and on BN254/Grumpkin (2 steps each), the Pasta
 one byte-equal to the reference's proof where tests/data holds it
 (tests/data/torch_toy_recursive_ref.json.gz), and ChunkProver's 1-block
 prove_recursive; every commitment of the chains is held against the plain
-versions of msm_bucket, msm_merge and msm_wsum on its own scalars.
+versions of msm_bucket, msm_merge and msm_wsum on its own scalars. The
+toy chains compressed (RecursiveSNARK.compress) and verified, the Pasta
+one byte-equal to the port's committed compressed proof of the reference's
+chain where tests/data holds it
+(tests/data/torch_toy_recursive_compressed.json.gz); the h_tables kernel
+against its plain version and the host loop on rows of the toy primary.
 
 Marked `cuda`: without a CUDA device each test skips (the decision is made
 inside the fixture, never at import). On a machine with the card:
@@ -12,17 +17,26 @@ inside the fixture, never at import). On a machine with the card:
 """
 
 import contextlib
+import copy
+import gzip
 import json
 import os
 
+import numpy as np
 import pytest
 import torch
 
 from hotproofs_tpu_torch.core import blake3_ref as b3
 from hotproofs_tpu_torch.models import chunk_prover as CP
+from hotproofs_tpu_torch.nova import recursive as R
+from hotproofs_tpu_torch.nova import spartan as SP
+from hotproofs_tpu_torch.ops import curve as C
 from hotproofs_tpu_torch.ops import msm_pallas as MP
-from test_torch_recursive_fixtures import (CHAINS, LABEL, Z0, load_ref, port_snark,
-                              ref_path, toy_host)
+from hotproofs_tpu_torch.ops import tables as TB
+from spartan_chains import host_tables, small_key, sub_shape, table_test_rows
+from test_torch_recursive_fixtures import (CHAINS, LABEL, Z0, compressed_path,
+                                           load_ref, port_snark, ref_path,
+                                           toy_host)
 
 pytestmark = pytest.mark.cuda
 
@@ -95,3 +109,64 @@ def test_chunk_prove_recursive_on_the_card(dev):
     proof.chunk_idx = 1
     with pytest.raises(AssertionError, match="z0 mismatch"):
         prover.verify_recursive(proof)
+
+
+COMPRESSED_TOY = compressed_path()
+
+
+@pytest.mark.parametrize("cycle,label", [
+    (("pallas", "vesta"), LABEL),
+    (("bn254", "grumpkin"), b"test-recursive-bn")], ids=["pasta", "bn254"])
+def test_toy_chain_compressed(dev, cycle, label, tmp_path):
+    """The toy chain proved, compressed and verified on the card; on Pasta
+    the reference's proof compresses to the committed bytes; a changed
+    argument of the strict claim is refused."""
+    snark = port_snark(cycle, label, device=dev)
+    proof = snark.prove(Z0, n_steps=CHAINS["toy"][1])
+    before = MP.launches["h_tables"]
+    snark.setup_compressed()
+    assert MP.launches["h_tables"] - before in (0, 2)  # or the disk cache
+    cp = snark.compress(proof)
+    assert snark.verify_compressed(cp) == proof.z_final
+    assert set(snark.compress_times) == {"sp1", "sp2", "sp_u1"}
+    assert all(pt is None for pt in cp.sp_u1.ipa_E.Ls + cp.sp_u1.ipa_E.Rs)
+    if cycle[0] == "pallas" and os.path.exists(COMPRESSED_TOY):
+        mine = snark.compress(R.RecursiveProof.from_dict(load_ref("toy")))
+        mine.save(str(tmp_path / "cp.json"))
+        with gzip.open(COMPRESSED_TOY, "rt") as f, \
+                open(tmp_path / "cp.json") as g:
+            assert g.read() == f.read()
+    bad = copy.deepcopy(cp)
+    bad.sp_u1.ipa_L.Ls[2] = bad.sp_u1.ipa_L.Rs[2]
+    with pytest.raises(AssertionError, match="IPA opening of L failed"):
+        snark.verify_compressed(bad)
+
+
+def test_h_tables_kernel_vs_plain_and_host(dev):
+    """h_tables on the card == its plain version bit for bit (projective)
+    and == the host loop (affine), on the toy primary's rows of
+    tests/test_torch_tables.py over a 64-generator key."""
+    from hotproofs_tpu_torch.circuits import gadgets as g
+    from hotproofs_tpu_torch.circuits import nova_augmented as NA
+    from hotproofs_tpu_torch.circuits.dsl import compile_circuit
+    from hotproofs_tpu_torch.nova.r1cs import ShapeDevice
+    from hotproofs_tpu_torch.ops import poseidon as P
+    from test_torch_recursive_fixtures import toy_gadget
+    c = NA.make_augmented_circuit(
+        P.make_spec(C.PALLAS.scalar.name), C.VESTA.b, C.VESTA.scalar.p, 0,
+        1, lambda ctx, z, e: toy_gadget(ctx, z, e, g), fold_at_base=True)
+    r1cs, _ = compile_circuit(c, C.PALLAS.scalar.p)
+    primary = ShapeDevice.from_dsl(r1cs)
+    shape, _ = sub_shape(primary, table_test_rows(primary, 24), 64, dev)
+    ck = small_key(C.PALLAS, b"tables-test", 64, dev)
+    sps = SP.SpartanSystem(shape=shape, curve=C.PALLAS, ck=ck, pp_digest=1)
+    csr = TB.table_csr(shape.field, [(d.rows, d.cols, d.vals) for d in (
+        shape.dev[k] for k in "ABC")], sps.m)
+    _, lpw, _, _ = MP.plan(sps.nz, 256)
+    bl = ck.bases_lm(sps.nz, 256)
+    before = MP.launches["h_tables"]
+    got = TB.h_tables(C.PALLAS, csr, bl, lpw)
+    assert MP.launches["h_tables"] == before + 1
+    assert torch.equal(got, TB.h_tables_plain(C.PALLAS, csr, bl, lpw))
+    want = host_tables(shape, ck, sps.m)
+    assert all(np.array_equal(a, b) for a, b in zip(sps._build_H(), want))

@@ -92,11 +92,65 @@ def make_reference(name: str) -> dict:
     return proof.to_dict()
 
 
+def compressed_path() -> str:
+    return os.path.join(DATA, "torch_toy_recursive_compressed.json.gz")
+
+
+def make_port_compressed(device="cuda") -> str:
+    """The port's compressed proof of the reference's toy chain with real
+    commitments (the saved file's text), verified by the port."""
+    import tempfile
+
+    from hotproofs_tpu_torch.nova import recursive as R
+    snark = port_snark(device=device)
+    proof = R.RecursiveProof.from_dict(load_ref("toy"))
+    cp = snark.compress(proof)
+    assert snark.verify_compressed(cp) == proof.z_final
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "cp.json")
+        cp.save(path)
+        with open(path) as f:
+            return f.read()
+
+
+def reference_verifies_compressed() -> list:
+    """The JAX package's RecursiveSNARK of the toy chain (its real keys)
+    verifies the port's committed compressed proof; returns z_final."""
+    import tempfile
+
+    from hotproofs_tpu.circuits import gadgets as g
+    from hotproofs_tpu.nova import recursive as R
+    from hotproofs_tpu.ops import curve as C
+    snark = R.RecursiveSNARK(
+        lambda ctx, z, extra: toy_gadget(ctx, z, extra, g),
+        toy_host(C.PALLAS.scalar.p), arity=1, label=LABEL)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "cp.json")
+        with gzip.open(compressed_path(), "rt") as f, open(path, "w") as g_:
+            g_.write(f.read())
+        return snark.verify_compressed(R.CompressedRecursiveProof.load(path))
+
+
 if __name__ == "__main__":
     # python tests/test_torch_recursive_fixtures.py {toy,oracle} OUT.json.gz
     # (JAX_PLATFORMS=cpu PYTHONPATH=. ; the real-commitment chain compiles
-    # the reference's MSM on XLA:CPU, tens of minutes per width)
+    # the reference's MSM on XLA:CPU, tens of minutes per width), or
+    # python tests/test_torch_recursive_fixtures.py compressed OUT.json.gz
+    # on the card (PYTHONPATH=.; the port's compression of the toy one), or
+    # python tests/test_torch_recursive_fixtures.py verify-compressed
+    # (JAX_PLATFORMS=cpu PYTHONPATH=.; the reference's verdict on it, hours
+    # of XLA:CPU compiles)
     import sys
-    doc = make_reference(sys.argv[1])
-    with gzip.open(sys.argv[2], "wt") as f:
-        json.dump(doc, f)
+    import time
+    if sys.argv[1] == "verify-compressed":
+        t0 = time.perf_counter()
+        print("z_final", reference_verifies_compressed(),
+              f"{time.perf_counter() - t0:.0f} s", flush=True)
+    elif sys.argv[1] == "compressed":
+        text = make_port_compressed()
+        with gzip.open(sys.argv[2], "wt") as f:
+            f.write(text)
+    else:
+        doc = make_reference(sys.argv[1])
+        with gzip.open(sys.argv[2], "wt") as f:
+            json.dump(doc, f)
