@@ -114,7 +114,21 @@ exit and no result line:
      of each BLAKE3 side's call (and the whole call's output on those
      rows), timed on the slice and whole beside its bound, and the kernel's
      tables of phase 9's chunk circuit against the host fold_point loop;
-     the peak device memory.
+     the peak device memory;
+ 12. the per-step prover, checkpoints and the mesh, with the launch counts
+     set to 0 before it: prove(fast=False) of phase 4's chunk (each step's
+     host witness, device, commit and host ms), byte-equal to phase 4's
+     proof and verified; prove_batch with checkpoint_every=8 (the save and
+     load times), its last checkpoint resumed by a fresh IVC with the same
+     bytes, one with a changed pp digest refused; a one-rank NCCL group
+     (init_distributed from HOTPROOFS_COORDINATOR, _NUM_PROCESSES and
+     _PROCESS_ID; the card machine has one H100) with a 1x1 mesh and a
+     one-rank chain mesh: prove(mesh=) and prove_lockstep(mesh=) of phase
+     4's chunks byte-equal to phase 4's proofs, msm_sharded at the comm_T
+     shape equal to msm_many; then the launch counts of the phase
+     (msm_bucket, msm_merge, msm_wsum and mont_mul must be > 0), those
+     kernels against their plain versions on the phase's first commit and
+     to_mont inputs, the phase's time and peak device memory.
 The last two lines are the kernels' JSON summary (with each kernel's
 bound: the least time the card could take for the work of its timed
 call) and the result line.
@@ -1503,6 +1517,166 @@ def rec_compress_phase(prover, rp, root, dev, note, stats, bounds, rate,
     return {"h_tables": counts["h_tables"]}
 
 
+def steps_mesh_phase(prover, data, ci, proof, many, root, dev, note, rng,
+                     smi) -> None:
+    """Phase 12: the per-step prover, checkpoints with resume and a
+    one-rank NCCL mesh on phase 4's chunk at full width, each byte-equal
+    to phase 4's proofs; the phase's launch counts (msm_bucket, msm_merge,
+    msm_wsum and mont_mul must be > 0), then those kernels against their
+    plain versions on the first commit and to_mont inputs of the phase."""
+    import socket
+    import tempfile
+
+    from hotproofs_tpu_torch.nova import ivc as I
+    from hotproofs_tpu_torch.ops import msm_pallas as MP
+    from hotproofs_tpu_torch.parallel import mesh as M
+    from hotproofs_tpu_torch.parallel.msm_sharded import msm_sharded
+
+    tag = "12 steps+mesh"
+    text = lambda p: json.dumps(p.to_dict())
+    seen: dict = {}
+    ivc = prover.ivc
+    MP.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    with capturing(seen, "per-step"):
+        t0 = time.perf_counter()
+        root_s, slow = prover.prove(data, ci, fast=False)
+        dt = time.perf_counter() - t0
+    n = slow.ivc_proof.num_steps
+    require(root_s == root and text(slow) == text(proof),
+            "the per-step proof differs from phase 4's")
+    t0 = time.perf_counter()
+    require(prover.verify(slow) == root, "verify returned another root")
+    say(tag, f"prove(fast=False) chunk {ci}: {n} steps in {dt:.2f} s "
+        f"({n / dt:.3f} folds/s), byte-equal to phase 4's proof; verify "
+        f"{time.perf_counter() - t0:.2f} s [{smi}]")
+    tm = ivc.timings
+    for a in range(0, n, 8):
+        say(tag, "ms a step (host witness / device / commit / host): " +
+            "; ".join(f"{a + i}: {t['witness']:.0f} / {t['device']:.0f} / "
+                      f"{t['commit']:.0f} / {t['host']:.0f}"
+                      for i, t in enumerate(tm[a:a + 8])))
+    say(tag, "mean ms a step: " + ", ".join(
+        f"{k} {sum(t[k] for t in tm) / n:.1f}" for k in tm[0]))
+
+    _, sched, canon, X = prover._device_witness_chain(
+        prover._hash_with_path(data, ci))
+    saves, save_ms = [], []
+    checkpoint = ivc._checkpoint
+
+    def timed_checkpoint(*a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cp = checkpoint(*a)
+        save_ms.append((time.perf_counter() - t0) * 1e3)
+        saves.append(cp.next_step)
+        return cp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ckpt.json")
+        ivc._checkpoint = timed_checkpoint
+        try:
+            with capturing(seen, "checkpointed"):
+                t0 = time.perf_counter()
+                whole = ivc.prove_batch(sched.z0, canon, X,
+                                        checkpoint_every=8,
+                                        checkpoint_path=path)
+                dt = time.perf_counter() - t0
+        finally:
+            del ivc._checkpoint
+        require(saves == [8, 16, 24], f"checkpoints after folds {saves}")
+        require(text(whole) == text(proof.ivc_proof),
+                "the checkpointed chain differs from phase 4's")
+        t0 = time.perf_counter()
+        cp = I.ProverCheckpoint.load(path)
+        t_load = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        cp.save(os.path.join(tmp, "again.json"))
+        t_write = (time.perf_counter() - t0) * 1e3
+        fresh = I.IVC(ivc.shape, ivc.curve, ivc.ck, ivc.big_wit_idx,
+                      label=ivc.label)
+        t0 = time.perf_counter()
+        resumed = fresh.prove_batch(sched.z0, canon, X, resume=cp)
+        t_res = time.perf_counter() - t0
+        require(text(resumed) == text(proof.ivc_proof),
+                "the resumed chain differs from phase 4's")
+        say(tag, f"prove_batch with checkpoint_every=8: {dt:.2f} s, saves "
+            f"after folds {saves} (state to ints "
+            + ", ".join(f"{v:.1f}" for v in save_ms) + " ms, file write "
+            f"{t_write:.1f} ms, {os.path.getsize(path)} bytes); load "
+            f"{t_load:.1f} ms; a fresh "
+            f"IVC resumed at fold {cp.next_step} in {t_res:.2f} s, "
+            f"byte-equal to phase 4's proof [{smi}]")
+        cp.pp_digest = (cp.pp_digest + 1) % prover.modulus
+        try:
+            fresh.prove_batch(sched.z0, canon, X, resume=cp)
+        except AssertionError as e:
+            require("different circuit/key" in str(e), f"refused: {e}")
+            say(tag, f"a checkpoint with a changed pp_digest refused ({e})")
+        else:
+            require(False, "a checkpoint for another pp digest resumed")
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    env = {"HOTPROOFS_COORDINATOR": f"127.0.0.1:{port}",
+           "HOTPROOFS_NUM_PROCESSES": "1", "HOTPROOFS_PROCESS_ID": "0"}
+    os.environ.update(env)
+    try:
+        t0 = time.perf_counter()
+        rank = M.init_distributed()
+        mesh = M.make_mesh(1, 1)
+        chain_mesh = M.make_chain_mesh()
+        require(rank == 0 and torch.distributed.get_backend() == "nccl",
+                "the one-rank group is not NCCL")
+        say(tag, f"one-rank NCCL group and meshes in "
+            f"{time.perf_counter() - t0:.2f} s: {mesh}, {chain_mesh}")
+        with capturing(seen, "mesh"):
+            t0 = time.perf_counter()
+            _, on_mesh = prover.prove(data, ci, mesh=mesh)
+            dt = time.perf_counter() - t0
+            require(text(on_mesh) == text(proof),
+                    "prove_batch(mesh=) differs from phase 4's proof")
+            chains = []
+            for p in many:
+                _, sch, cn, Xp = prover._device_witness_chain(
+                    prover._hash_with_path(data, p.chunk_idx))
+                chains.append((sch.z0, cn, Xp))
+            t0 = time.perf_counter()
+            lock = ivc.prove_lockstep(chains, mesh=chain_mesh)
+            dl = time.perf_counter() - t0
+        require([text(p) for p in lock] ==
+                [text(p.ivc_proof) for p in many],
+                "prove_lockstep(mesh=) differs from phase 4's prove_many")
+        m = ivc.shape.n_cons
+        raw = rng.integers(0, 256, size=(m, 32), dtype=np.int64)
+        raw[:, 31] &= 0x3F
+        sc = torch.from_numpy(raw.astype(np.int32)).to(dev)
+        got = ivc.ck.affine(tuple(c[None] for c in msm_sharded(
+            ivc.ck, mesh, sc, 256)))
+        require(got == ivc.ck.affine(ivc.ck.commit_many(sc[None], 256)),
+                "msm_sharded != msm_many at the comm_T shape")
+        say(tag, f"prove(mesh=1x1) chunk {ci}: {dt:.2f} s, byte-equal to "
+            f"phase 4's proof; prove_lockstep(mesh=chain of 1) K=2: "
+            f"{dl:.2f} s, byte-equal to phase 4's prove_many; msm_sharded "
+            f"at the comm_T shape (m = {m}, 256 bits) == msm_many [{smi}]")
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        for k in env:
+            os.environ.pop(k, None)
+    torch.cuda.synchronize()
+    counts = dict(MP.launches)
+    say(tag, f"phase {time.perf_counter() - t_phase:.1f} s [{smi}]; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        "GiB; launches " + ", ".join(f"{k} {counts[k]}" for k in MAIN))
+    for k in ("msm_bucket", "msm_merge", "msm_wsum", "mont_mul"):
+        require(counts[k] > 0, f"{k} was not launched in phase 12")
+    check_captured(seen, dev, note, tag)
+
+
 def field_phase(prover, dev, rng, note, stats, bounds) -> dict:
     """Phase 7: the four field-multiply kernels against their plain
     versions in three fields, mont_mul at the prover's own shapes, then
@@ -1925,6 +2099,10 @@ def main() -> int:
     # -- 11. the compressed recursive proof -----------------------------------
     counts.update(rec_compress_phase(prover, rp, root, dev, note, stats,
                                      bounds, rate, smi))
+
+    # -- 12. per-step prove, checkpoints and the mesh --------------------------
+    steps_mesh_phase(prover, data, ci, proof, proofs, root, dev, note, rng,
+                     smi)
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": CSRC + src,

@@ -1,7 +1,7 @@
 """Prove and verify possession of a BLAKE3 chunk by Nova folding (port of
-hotproofs_tpu/models/chunk_prover.py: prove, prove_many, verify, the
-verification key, segmented proofs, compressed proofs, recursive proofs,
-the CLI).
+hotproofs_tpu/models/chunk_prover.py: prove (batched, per-step, or on a
+mesh), prove_many, verify, the verification key, segmented proofs,
+compressed proofs, recursive proofs, the CLI).
 
 One step per 64-byte block of the chunk plus one per Merkle level; the
 verifier recomputes the root hash from the final state z[2:10]. Proofs and
@@ -331,14 +331,40 @@ class ChunkProver:
                           leaf_depth=sched.leaf_depth,
                           total_depth=proof_data.total_depth)
 
-    def prove(self, data: bytes, chunk_idx: int,
-              progress: bool = False) -> Tuple[bytes, ChunkProof]:
+    def prove(self, data: bytes, chunk_idx: int, progress: bool = False,
+              fast: bool = True, mesh=None) -> Tuple[bytes, ChunkProof]:
+        """Prove chunk_idx of data; returns (root_hash, ChunkProof).
+
+        fast: the batched path (the chain's witnesses in one device batch,
+        IVC.prove_batch, on the mesh if one is given: parallel/mesh.py);
+        fast=False: the per-step host path (_prove_host), the reference's
+        cross-check, with the same bytes."""
         proof_data = self._hash_with_path(data, chunk_idx)
-        _, sched, canon, X_host = self._device_witness_chain(proof_data)
-        ivc_proof = self.ivc.prove_batch(sched.z0, canon, X_host,
-                                         progress=progress)
+        if fast:
+            _, sched, canon, X_host = self._device_witness_chain(proof_data)
+            ivc_proof = self.ivc.prove_batch(sched.z0, canon, X_host,
+                                             progress=progress, mesh=mesh)
+        else:
+            check(mesh is None, "the per-step path runs on one device")
+            sched, ivc_proof = self._prove_host(proof_data, progress)
         return proof_data.root_hash, self._chunk_proof(
             proof_data, sched, chunk_idx, ivc_proof)
+
+    def _prove_host(self, proof_data, progress: bool):
+        """The per-step path: each step's witness evaluated on the host
+        from the schedule and folded by IVC.prove as it comes (its
+        per-step ms are left in self.ivc.timings)."""
+        sched = nova_circ.build_schedule(proof_data)
+
+        def witnesses():
+            z = [v % self.modulus for v in sched.z0]
+            for step in sched.steps:
+                w, z = nova_circ.eval_step_witness(
+                    z, step, self.modulus, depth_bits=self.depth_bits)
+                yield w
+
+        return sched, self.ivc.prove(sched.z0, witnesses(),
+                                     progress=progress)
 
     def prove_many(self, data: bytes, chunk_idxs: Sequence[int],
                    progress: bool = False) -> Tuple[bytes, List[ChunkProof]]:

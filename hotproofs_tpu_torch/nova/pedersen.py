@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass, field as dc_field
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -166,6 +166,27 @@ class CommitmentKey:
                            self.bases_big(big_idx), len(big_idx), 256,
                            bases_lm=self.bases_big_lm(big_idx))
         return C.pt_add(self.spec, acc, accb)
+
+    def commit_many_mesh(self, scalars: torch.Tensor, mesh,
+                         max_bits: int = 256, axis: str = "chain",
+                         big_idx: Optional[np.ndarray] = None) -> C.Point:
+        """commit_many (commit_many_split with big_idx) with the J jobs
+        split over a mesh axis (parallel/mesh.py): rank r commits the
+        contiguous block [r J/D, (r+1) J/D) against the key's prepared
+        bases, which every rank holds, and an all-gather gives every rank
+        all J points (proof assembly needs them), (J, 32) x3 in job
+        order. J must divide by the axis size D."""
+        from ..parallel import mesh as M
+        J, D = scalars.shape[0], mesh.get_group(axis).size()
+        if J % D:
+            raise AssertionError(
+                f"jobs {J} must divide by mesh axis {axis}={D}")
+        blk, r = J // D, mesh.get_local_rank(axis)
+        part = scalars[r * blk:(r + 1) * blk]
+        pt = self.commit_many(part, max_bits) if big_idx is None \
+            else self.commit_many_split(part, big_idx)
+        g = M.gather_points(pt, mesh, axis)             # (D, 3, blk, 32)
+        return tuple(g[:, c].reshape(J, F.N_LIMBS) for c in range(3))
 
     def affine(self, pt: C.Point) -> list:
         """Projective Montgomery (J, 32) x3 -> J affine int pairs."""

@@ -167,3 +167,57 @@ def test_spartan_fixture_on_the_card(prover, name, tmp_path):
     cp.save(str(tmp_path / "cp.json"))
     assert (tmp_path / "cp.json").read_text() == \
         json.dumps(d["compressed_proof"])
+
+
+def test_per_step_and_resume_on_the_card(prover, tmp_path):
+    """fast=False (the per-step IVC.prove) and a chain resumed from its
+    checkpoint give the batched proof's bytes."""
+    from hotproofs_tpu_torch.nova.ivc import ProverCheckpoint
+
+    root, fast = prover.prove(DATA, 1)
+    _, slow = prover.prove(DATA, 1, fast=False)
+    assert json.dumps(slow.to_dict()) == json.dumps(fast.to_dict())
+    _, sched, canon, X = prover._device_witness_chain(
+        prover._hash_with_path(DATA, 1))
+    path = str(tmp_path / "ckpt.json")
+    whole = prover.ivc.prove_batch(sched.z0, canon, X, checkpoint_every=1,
+                                   checkpoint_path=path)
+    assert json.dumps(whole.to_dict()) == json.dumps(fast.ivc_proof.to_dict())
+    fresh = CP.ChunkProver(device="cuda")
+    resumed = fresh.ivc.prove_batch(sched.z0, canon, X,
+                                    resume=ProverCheckpoint.load(path))
+    assert json.dumps(resumed.to_dict()) == json.dumps(whole.to_dict())
+
+
+def test_one_rank_nccl_mesh_gives_the_same_bytes(prover, monkeypatch):
+    """A one-rank NCCL group (the card machine has one H100): prove_batch
+    on a 1x1 mesh and prove_lockstep on a one-rank chain mesh equal the
+    runs without a mesh."""
+    import socket
+
+    from hotproofs_tpu_torch.parallel import mesh as M
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    monkeypatch.setenv("HOTPROOFS_COORDINATOR", f"127.0.0.1:{port}")
+    monkeypatch.setenv("HOTPROOFS_NUM_PROCESSES", "1")
+    monkeypatch.setenv("HOTPROOFS_PROCESS_ID", "0")
+    assert M.init_distributed() == 0
+    try:
+        assert torch.distributed.get_backend() == "nccl"
+        _, want = prover.prove(DATA, 1)
+        _, got = prover.prove(DATA, 1, mesh=M.make_mesh(1, 1))
+        assert json.dumps(got.to_dict()) == json.dumps(want.to_dict())
+        _, many = prover.prove_many(DATA, [1, 0])
+        chains = []
+        for ci in (1, 0):
+            _, sched, canon, X = prover._device_witness_chain(
+                prover._hash_with_path(DATA, ci))
+            chains.append((sched.z0, canon, X))
+        mesh_many = prover.ivc.prove_lockstep(chains,
+                                              mesh=M.make_chain_mesh())
+        assert [json.dumps(p.to_dict()) for p in mesh_many] == \
+            [json.dumps(p.ivc_proof.to_dict()) for p in many]
+    finally:
+        torch.distributed.destroy_process_group()

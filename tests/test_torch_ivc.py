@@ -6,76 +6,29 @@ proofs, and lockstep == separate chains."""
 
 import copy
 import json
-import os
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from hotproofs_tpu.circuits import gadgets as g
-from hotproofs_tpu.circuits.blake3_compression import VESTA_PRIME
-from hotproofs_tpu.circuits.dsl import compile_circuit, eval_witness
+from hotproofs_tpu.circuits.dsl import eval_witness
 from hotproofs_tpu_torch.nova.ivc import IVC, IVCProof
-from hotproofs_tpu_torch.nova.pedersen import CommitmentKey
-from hotproofs_tpu_torch.nova.r1cs import ShapeDevice
 from hotproofs_tpu_torch.ops import curve as C
-from hotproofs_tpu_torch.ops import field as F
 from hotproofs_tpu_torch.utils import bridge, telemetry
+from torch_toy_chain import CONST, P, toy_ivc, toy_step
+from torch_toy_chain import chain as _chain
+from torch_toy_chain import ref_dict as _ref_dict
+from torch_toy_chain import toy_gens as _toy_gens
 
 # pytest-xdist runs several workers on one host: one intra-op thread
 # each keeps them from oversubscribing the cores.
 torch.set_num_threads(1)
 
-REF_PROOF = os.path.join(os.path.dirname(__file__), "data",
-                         "torch_toy_proof_ref.json")
-CONST = 7
-P = VESTA_PRIME
-
-
-def toy_step(ctx):
-    z_out = ctx.declare_output("z_out", 1)
-    z_in = ctx.declare_input("z_in", 1, public=True)
-    sq = g.mul(ctx, z_in[0], z_in[0], name="sq")
-    cube = g.mul(ctx, sq, z_in[0], name="cube")
-    ctx.bind(z_out[0], cube + CONST)
-
-
-def _toy_gens(n):
-    """The b"toy" key's generators, derived in memory: the reference's
-    tests/test_ivc_toy.py may be writing the shared .cache file meanwhile."""
-    f = C.PALLAS.base
-    return np.asarray([[F.int_to_limbs(f.to_mont_int(x)),
-                        F.int_to_limbs(f.to_mont_int(y))]
-                       for x, y in C.derive_generators(C.PALLAS, b"toy", n)],
-                      np.int32)
-
 
 @pytest.fixture(scope="module")
 def toy():
-    r1cs, layout = compile_circuit(toy_step, P)
-    shape = ShapeDevice.from_dsl(r1cs)
-    n = max(shape.n_wit, shape.n_cons)
-    ck = CommitmentKey(C.PALLAS, n, _toy_gens(n), b"toy")
-    return IVC(shape, C.PALLAS, ck, None), r1cs, layout
-
-
-def _chain(layout, z0, n_steps):
-    """(canon (N, n_vars, 32), X_host, z_final) of a toy chain."""
-    z, wits = z0 % P, []
-    for _ in range(n_steps):
-        wits.append(eval_witness(toy_step, layout, {"z_in": [z]}))
-        z = (pow(z, 3, P) + CONST) % P
-    spec = F.pallas_scalar
-    canon = np.stack([spec.batch_to_limbs([int(v) for v in w])
-                      for w in wits])
-    X = [[int(v) % P for v in w[1:3]] for w in wits]
-    return canon, X, z
-
-
-def _ref_dict():
-    with open(REF_PROOF) as f:
-        return json.load(f)
+    return toy_ivc()
 
 
 def test_pp_digest_matches_reference(toy):

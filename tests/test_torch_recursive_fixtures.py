@@ -131,6 +131,46 @@ def reference_verifies_compressed() -> list:
         return snark.verify_compressed(R.CompressedRecursiveProof.load(path))
 
 
+PARTS = ("hashes", "sp1", "sp2", "sp_u1")
+
+
+def reference_verifies_compressed_part(part: str) -> None:
+    """One part of the JAX package's verify_compressed on the port's
+    committed compressed proof, so that each can run in its own process:
+    'hashes' (the two state-hash bindings of u1) or 'sp1', 'sp2', 'sp_u1'
+    (the Spartan verify_relaxed of U1, U2 and the strict u1). sp1 and sp_u1
+    share side 1's table cache (.cache/spartanH_*): run sp_u1 after sp1."""
+    from hotproofs_tpu.circuits import gadgets as g
+    from hotproofs_tpu.nova import recursive as R
+    from hotproofs_tpu.ops import curve as C
+    assert part in PARTS, part
+    snark = R.RecursiveSNARK(
+        lambda ctx, z, extra: toy_gadget(ctx, z, extra, g),
+        toy_host(C.PALLAS.scalar.p), arity=1, label=LABEL)
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "cp.json")
+        with gzip.open(compressed_path(), "rt") as f, open(path, "w") as g_:
+            g_.write(f.read())
+        cp = R.CompressedRecursiveProof.load(path)
+    if part == "hashes":
+        q = snark.q
+        z0 = [int(v) % q for v in cp.z0]
+        z_final = [int(v) % q for v in cp.z_final]
+        h1 = R.state_hash_host(snark.pspec1, snark.vk, cp.n_steps, z0,
+                               z_final, cp.U2)
+        assert cp.u1.X[0] == h1, "primary state hash mismatch"
+        h2 = R.state_hash_host(snark.pspec2, snark.vk, cp.n_steps, None,
+                               None, cp.U1)
+        assert cp.u1.X[1] == h2, "secondary state hash mismatch"
+        return
+    i1, i2, iu = snark._instances(cp)
+    side, inst, sp = {"sp1": (snark.side1, i1, cp.sp1),
+                      "sp2": (snark.side2, i2, cp.sp2),
+                      "sp_u1": (snark.side1, iu, cp.sp_u1)}[part]
+    snark._spartan(side).verify_relaxed(inst, sp)
+
+
 if __name__ == "__main__":
     # python tests/test_torch_recursive_fixtures.py {toy,oracle} OUT.json.gz
     # (JAX_PLATFORMS=cpu PYTHONPATH=. ; the real-commitment chain compiles
@@ -139,10 +179,20 @@ if __name__ == "__main__":
     # on the card (PYTHONPATH=.; the port's compression of the toy one), or
     # python tests/test_torch_recursive_fixtures.py verify-compressed
     # (JAX_PLATFORMS=cpu PYTHONPATH=.; the reference's verdict on it, hours
-    # of XLA:CPU compiles)
+    # of XLA:CPU compiles), or ... verify-compressed-part PART, one part of
+    # that verdict (PARTS) in its own process
     import sys
     import time
-    if sys.argv[1] == "verify-compressed":
+    if sys.argv[1] == "verify-compressed-part":
+        # ... verify-compressed-part {hashes,sp1,sp2,sp_u1}: one part of the
+        # verdict; a stack dump every 10 minutes says where a cut run stood
+        import faulthandler
+        faulthandler.dump_traceback_later(600, repeat=True)
+        t0 = time.perf_counter()
+        reference_verifies_compressed_part(sys.argv[2])
+        print("part", sys.argv[2], "accepted",
+              f"{time.perf_counter() - t0:.0f} s", flush=True)
+    elif sys.argv[1] == "verify-compressed":
         t0 = time.perf_counter()
         print("z_final", reference_verifies_compressed(),
               f"{time.perf_counter() - t0:.0f} s", flush=True)

@@ -1,5 +1,5 @@
 """The port's segment-parallel proving (parallel/segments.py) on the toy
-circuit of tests/test_torch_ivc.py: the reference's split plan, segment
+circuit of tests/torch_toy_chain.py: the reference's split plan, segment
 proofs byte-equal to standalone prove_batch runs on both paths, the
 verifier's rejections, resume from checkpoints, retries, verify_each, and
 files that the reference reads and writes back to the same bytes."""
@@ -19,7 +19,9 @@ from hotproofs_tpu_torch.nova.r1cs import ShapeDevice
 from hotproofs_tpu_torch.ops import curve as C
 from hotproofs_tpu_torch.parallel import segments as S
 from hotproofs_tpu_torch.utils import telemetry
-from tests.test_torch_ivc import CONST, P, _chain, _toy_gens, toy_step
+from torch_toy_chain import CONST, P, toy_step
+from torch_toy_chain import chain as _chain
+from torch_toy_chain import toy_gens as _toy_gens
 
 # pytest-xdist runs several workers on one host: one intra-op thread
 # each keeps them from oversubscribing the cores.

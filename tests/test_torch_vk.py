@@ -19,7 +19,8 @@ from hotproofs_tpu_torch.nova.pedersen import CommitmentKey
 from hotproofs_tpu_torch.nova.r1cs import ShapeDevice
 from hotproofs_tpu_torch.ops import curve as C
 from hotproofs_tpu_torch.ops import poseidon as PS
-from tests.test_torch_ivc import P, REF_PROOF, _toy_gens, toy_step
+from torch_toy_chain import P, REF_PROOF, toy_step
+from torch_toy_chain import toy_gens as _toy_gens
 
 # pytest-xdist runs several workers on one host: one intra-op thread
 # each keeps them from oversubscribing the cores.
