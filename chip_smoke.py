@@ -23,7 +23,8 @@ exit and no result line:
      both, and rejects a proof with one comm_T changed;
   5. each kernel's launch count during phase 4 (every one must be > 0);
   6. the MSM bucket designs (tools/msm_designs.py): msm_chain,
-     msm_bucket_tsplit, msm_bucket_signed and the 8-slot merge and wsum
+     msm_bucket_tsplit and msm_bucket_signed (both on msm_bucket's sorted
+     walk over the key's lane-major bases) and the 8-slot merge and wsum
      against their plain versions (seeded, m = 1000, 40 and 256 bits, then
      at the comm_T shape, exact equality, kernel and plain times), then
      the designs path at the comm_T J=1, W J=16, W J=256 and comm_T J=16
@@ -41,8 +42,11 @@ exit and no result line:
      (p-1)^2 and 1 * (p-1), at a size that is no multiple of 512 (exact
      equality); mont_mul at the prover's own to_mont and from_mont shapes;
      then the tool's run at N = 16,384 and 131,072, one line per kernel,
-     stage and part with its time, its plain version's and its bound, and
-     the launch counts of that run (every one must be > 0);
+     stage and part with its time, its plain version's and its bound, the
+     library call for conv_mma (a grouped float32 conv1d without TF32,
+     timed the same way; its library_ms where its columns equal
+     conv_mma's), and the launch counts of that run (every one must be
+     > 0);
   8. vk and segments, with the launch counts set to 0 before it: the
      phase-4 prover's verification key is exported, phase 4's proof
      verified from it alone (nova/vk.py) and a vk with one matrix value
@@ -318,7 +322,8 @@ def designs_phase(prover, data, dev, rng, note, stats, bounds,
         after a warm-up; plain: one run), record the times of msm_chain,
         the H = 2 t-split and the signed kernel there, and return all
         times by label."""
-        sd = MP.msm_bucket_signed(spec, inp.sdigits, inp.sbases)
+        sd = MP.msm_bucket_signed(spec, inp.sdigits, inp.sbases,
+                                  inp.sbases_lm)
         red = MP.msm_merge(spec, sd)
         runs = {
             "msm_chain": (
@@ -326,12 +331,14 @@ def designs_phase(prover, data, dev, rng, note, stats, bounds,
                 lambda: MP.msm_chain_plain(spec, inp.bases, inp.J)),
             **{f"msm_bucket_tsplit H={h}": (
                 lambda h=h: MP.msm_bucket_tsplit(spec, inp.digits,
-                                                 inp.bases, h),
+                                                 inp.bases, h,
+                                                 inp.bases_lm),
                 lambda h=h: MP.msm_bucket_tsplit_plain(spec, inp.digits,
                                                        inp.bases, h))
                for h in D.TSPLITS},
             "msm_bucket_signed": (
-                lambda: MP.msm_bucket_signed(spec, inp.sdigits, inp.sbases),
+                lambda: MP.msm_bucket_signed(spec, inp.sdigits, inp.sbases,
+                                             inp.sbases_lm),
                 lambda: MP.msm_bucket_signed_plain(spec, inp.sdigits,
                                                    inp.sbases)),
             "msm_merge S=8": (lambda: MP.msm_merge(spec, sd),
@@ -390,7 +397,8 @@ def designs_phase(prover, data, dev, rng, note, stats, bounds,
                                    nbytes(inp.sdigits, inp.sbases)
                                    + signed_out, rate),
         "msm_merge S=8": merge_bound(
-            MP.msm_bucket_signed(spec, inp.sdigits, inp.sbases),
+            MP.msm_bucket_signed(spec, inp.sdigits, inp.sbases,
+                                 inp.sbases_lm),
             torch.empty(J, MP.NSIGNED, 3, 8, dtype=torch.int32), rate)[:2],
         "msm_wsum S=8": bound(MONT_ADD * J * 2 * MP.NSIGNED,
                               J * MP.NSIGNED * pt + J * pt, rate),
@@ -1768,6 +1776,14 @@ def field_phase(prover, dev, rng, note, stats, bounds) -> dict:
         stats[k]["ms"] = rows[line]["ms"]
         stats[k]["plain_ms"] = rows[line]["plain_ms"]
         bounds[k] = (rows[line]["bound_ms"], rows[line]["bound_by"])
+    # conv_mma's library call: a grouped float32 conv1d (tools/field_mul.py
+    # library_conv), kept only where its columns equal the kernel's
+    lib_row = rows["conv1d (library)"]
+    stats["conv_mma"]["library_ms"] = lib_row["ms"] if lib_row["exact"] \
+        else None
+    say("7 library", f"N={FM.NS[-1]}: conv1d (groups={FM.NS[-1]}, float32, "
+        f"no TF32) {lib_row['ms']:.4f} ms, its columns == conv_mma's: "
+        f"{lib_row['exact']}; conv_mma {rows['conv_mma']['ms']:.4f} ms")
     say("7 launches", ", ".join(f"{k} {counts[k]}" for k in FIELD))
     for k in FIELD:
         require(counts[k] > 0, f"{k} was not launched on the field-multiply "
@@ -2109,7 +2125,8 @@ def main() -> int:
          "replaces": rep, "launches": counts[k],
          "max_abs_err": stats[k]["max_abs_err"], "ms": stats[k]["ms"],
          "plain_ms": stats[k]["plain_ms"], "bound_ms": bounds[k][0],
-         "bound_by": bounds[k][1], "library_ms": None}
+         "bound_by": bounds[k][1],
+         "library_ms": stats[k].get("library_ms")}
         for k, (src, rep) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

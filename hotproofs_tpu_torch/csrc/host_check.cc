@@ -14,6 +14,21 @@
 
 using namespace hp;
 
+// k_split_walk for every (job, launch index) of the t-split (ol of
+// H * n_lanes) and of the signed digits (H = 1), over lane-major bases;
+// each thread's byte columns are its own, as in hc_msm_bucket.
+template <int S, bool SIGNED>
+static void split_walks(const u32* consts, const int* digits,
+                        const u32* bases_lm, u32* buckets, int J, int B,
+                        int n_lanes, int H) {
+  Consts c = load_consts(consts);
+  std::vector<unsigned char> dig(B), list(B), cnt(S + 1);
+  for (int j = 0; j < J; ++j)
+    for (int ol = 0; ol < H * n_lanes; ++ol)
+      split_walk<S, SIGNED>(c, digits, bases_lm, buckets, B, n_lanes, H, j,
+                            ol, dig.data(), list.data(), cnt.data(), 1);
+}
+
 extern "C" {
 
 void hc_mont_mul(const u32* consts, const u32* a, const u32* b, u32* out,
@@ -84,8 +99,9 @@ void hc_msm_bucket(const u32* consts, const int* digits, const u32* bases_lm,
   std::vector<unsigned char> dig(B), list(B), cnt(NBUCKET + 1);
   for (int j = 0; j < J; ++j)
     for (int l = 0; l < n_lanes; ++l)
-      bucket_walk(c, digits, bases_lm, buckets, B, n_lanes, j, l, dig.data(),
-                  list.data(), cnt.data(), 1);
+      bucket_walk<NBUCKET, false>(c, digits, bases_lm, buckets, B, n_lanes,
+                                  j, l, 0, B, l, n_lanes, dig.data(),
+                                  list.data(), cnt.data(), 1);
 }
 
 // k_msm_merge's group_sum over the n = 32 * nw accumulators v[0..n) of
@@ -167,26 +183,18 @@ void hc_msm_chain(const u32* consts, const u32* bases, u32* out, int J, int B,
       chain_lane(c, bases, out, B, n_lanes, j, l);
 }
 
-// The t-split kernel's index map, thread (j, h, l) for every launch index.
 void hc_msm_bucket_tsplit(const u32* consts, const int* digits,
-                          const u32* bases, u32* buckets, int J, int B,
+                          const u32* bases_lm, u32* buckets, int J, int B,
                           int n_lanes, int H) {
-  Consts c = load_consts(consts);
-  const int steps = B / H;
-  for (int j = 0; j < J; ++j)
-    for (int h = 0; h < H; ++h)
-      for (int l = 0; l < n_lanes; ++l)
-        bucket_range(c, digits, bases, buckets, B, n_lanes, j, l, h * steps,
-                     (h + 1) * steps, h * n_lanes + l, H * n_lanes);
+  split_walks<NBUCKET, false>(consts, digits, bases_lm, buckets, J, B,
+                              n_lanes, H);
 }
 
 void hc_msm_bucket_signed(const u32* consts, const int* digits,
-                          const u32* bases, u32* buckets, int J, int B,
+                          const u32* bases_lm, u32* buckets, int J, int B,
                           int n_lanes) {
-  Consts c = load_consts(consts);
-  for (int j = 0; j < J; ++j)
-    for (int l = 0; l < n_lanes; ++l)
-      signed_lane(c, digits, bases, buckets, B, n_lanes, j, l);
+  split_walks<NSIGNED, true>(consts, digits, bases_lm, buckets, J, B,
+                             n_lanes, 1);
 }
 
 // k_to_affine block by block: every thread's phase 1, the prefix and

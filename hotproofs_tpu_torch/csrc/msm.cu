@@ -11,14 +11,15 @@
 //   warp per scheduler) each lane's ~60 dependent adds run at the latency
 //   of their multiply chains, and at the W shapes (5 % of the digits
 //   nonzero, up to 53 in one lane) a warp takes as long as its busiest
-//   lane. A thread that keeps 15 buckets indexed by the digit (bucket_range,
-//   the t-split's body) holds them in local memory (255 registers and a
-//   2 KB stack, two blocks per SM), and its warp runs an add at every step
-//   where any lane has a nonzero digit. Here instead a counting sort in
-//   shared memory lists each lane's nonzero steps grouped by digit, and
-//   one loop walks that list with one accumulator in registers (msm.cuh:
-//   bucket_walk): a warp runs as many adds as its busiest lane has nonzero
-//   digits. Two costs come with the walk, since the lanes of a warp stand
+//   lane. A thread that keeps 15 buckets indexed by the digit (the
+//   lockstep loop this design replaced) holds them in local memory (255
+//   registers and a 2 KB stack, two blocks per SM), and its warp runs an
+//   add at every step where any lane has a nonzero digit. Here instead a
+//   counting sort in shared memory lists each lane's nonzero steps
+//   grouped by digit, and one loop walks that list with one accumulator
+//   in registers (msm.cuh: bucket_walk, which the t-split and signed
+//   kernels share): a warp runs as many adds as its busiest lane has
+//   nonzero digits. Two costs come with the walk, since the lanes of a warp stand
 //   at different steps: a time-major base row per word (a sector a word
 //   across a warp), answered by a lane-major copy of the bases read as
 //   four 16-byte vectors, and bucket stores at different times, answered
@@ -84,8 +85,9 @@ __global__ void __launch_bounds__(BUCKET_LANES)
   const int t = threadIdx.x;
   const int l = blockIdx.x * BUCKET_LANES + t;
   if (l >= n_lanes) return;
-  bucket_walk(c, digits, bases_lm, buckets, B, n_lanes, blockIdx.y, l,
-              dig + t, list + t, cnt + t, BUCKET_LANES);
+  bucket_walk<NBUCKET, false>(c, digits, bases_lm, buckets, B, n_lanes,
+                              blockIdx.y, l, 0, B, l, n_lanes, dig + t,
+                              list + t, cnt + t, BUCKET_LANES);
 }
 
 // Sums within groups of a merge block's threads: 5 shuffle levels in each

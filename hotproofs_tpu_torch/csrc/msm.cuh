@@ -6,7 +6,7 @@
 // Layouts (all u32 words, row-major, n_lanes innermost where threads stream):
 //   digits  (J, B, n_lanes)           int32 radix-16 digits in [0, 16)
 //   bases   (B, 2, 8, n_lanes)        pre-scaled affine Montgomery x, y
-//   bases_lm (n_lanes, B, 2, 8)       the same, lane-major (msm_bucket)
+//   bases_lm (n_lanes, B, 2, 8)       the same, lane-major (bucket_walk)
 //   buckets (J, S, 3, 8, n_lanes)     per-lane projective buckets 1..S
 //   reduced (J, S, 3, 8)              one projective point per (job, slot)
 //   out     (J, 3, 8)                 sum_v v * B_v per job
@@ -75,31 +75,6 @@ HP_HD void load_base(const u32* bases, size_t L, int t, int l, Aff& q) {
   }
 }
 
-// The t-split's bucket body (msm_designs.cu) over
-// steps [t0, t1) of lane l of job j: stream the bases in order and
-// mixed-add each into the bucket its digit selects (buckets start at the
-// identity, 15 of them in local memory); store them at lane `ol` of an
-// output with `out_lanes` lanes. The t-split runs set h's range into lane
-// h * n_lanes + l.
-HP_HD void bucket_range(const Consts& c, const int* digits, const u32* bases,
-                        u32* buckets, int B, int n_lanes, int j, int l,
-                        int t0, int t1, int ol, int out_lanes) {
-  Proj bk[NBUCKET];
-  for (int s = 0; s < NBUCKET; ++s) pt_identity(c, bk[s]);
-  const size_t L = (size_t)n_lanes;
-  for (int t = t0; t < t1; ++t) {
-    int d = digits[((size_t)j * B + t) * L + l];
-    if (d <= 0 || d > NBUCKET) continue;
-    Aff q;
-    load_base(bases, L, t, l, q);
-    pt_add_mixed(c, bk[d - 1], q, bk[d - 1]);
-  }
-  const size_t OL = (size_t)out_lanes;
-  for (int s = 0; s < NBUCKET; ++s)
-    store_proj(buckets + ((size_t)j * NBUCKET + s) * 3 * NW * OL + ol, OL,
-               bk[s]);
-}
-
 // G, the number of msm_merge threads per (job, slot): the largest power
 // of two (at least 32) for which J * S * G stays within
 // MERGE_TARGET_THREADS, but no more than the lanes rounded up to a power
@@ -149,50 +124,65 @@ HP_HD void load_base_lm(const u32* bases_lm, int B, int t, int l, Aff& q) {
   }
 }
 
-// K1 body for lane l of job j. A counting sort of the lane's digit column
-// lists its nonzero steps grouped by digit, ascending in step within a
-// digit. One loop then walks that list with one projective accumulator: it
-// mixed-adds base t at each step, and where the digit changes it keeps the
-// accumulator as that digit's bucket and restarts from the identity. Every
-// bucket so receives the same adds in the same order as in bucket_range,
-// and the output is bit-equal to it. The finished buckets wait in `done`
-// (local memory) so that the lanes of a warp store bucket s together, in
-// one coalesced pass at the end; buckets no digit touched get the
-// identity. dig, list and cnt are the thread's own columns (entries
-// `stride` bytes apart) of three byte tiles: its B digits, its sorted steps
-// and its 16 digit counters; B <= BUCKET_MAX_STEPS fits a byte. The bases
-// are read lane-major (load_base_lm): a lane's steps differ from its
+// K1 body, shared by msm_bucket (S = NBUCKET, unsigned, the whole column)
+// and the bucket-design kernels (msm_designs.cu: the t-split's step
+// ranges, the signed digits' S = NSIGNED): lane l of job j over steps
+// [t0, t0 + steps) of its digit column into S buckets. A counting sort of
+// those steps' digits lists the nonzero ones grouped by digit, ascending
+// in step within a digit. One loop then walks that list with one
+// projective accumulator: it mixed-adds base t at each step, and where the
+// digit changes it keeps the accumulator as that digit's bucket and
+// restarts from the identity. Every bucket so receives the same adds in
+// the same order as a loop that streams the steps in order into S
+// buckets (the plain versions), and the output is bit-equal to it. A
+// SIGNED digit is mag | neg << 4: the sort keys on mag (1..S), and a set
+// neg bit replaces the base's y by p - y. The finished buckets wait in
+// `done` (local memory) so that the lanes of a warp store bucket s
+// together, in one coalesced pass at the end, at lane ol of an output with
+// out_lanes lanes; buckets no digit touched get the identity. dig, list
+// and cnt are the thread's own columns (entries `stride` bytes apart) of
+// three byte tiles: its steps' digit bytes, its sorted steps and its 16
+// digit counters; steps <= BUCKET_MAX_STEPS fits a byte. The bases are
+// read lane-major (load_base_lm): a lane's steps differ from its
 // neighbours', so time-major rows would cost a sector per word.
+template <int S, bool SIGNED>
 HP_HD void bucket_walk(const Consts& c, const int* digits,
                        const u32* bases_lm, u32* buckets, int B,
-                       int n_lanes, int j, int l, unsigned char* dig,
-                       unsigned char* list, unsigned char* cnt, int stride) {
+                       int n_lanes, int j, int l, int t0, int steps, int ol,
+                       int out_lanes, unsigned char* dig, unsigned char* list,
+                       unsigned char* cnt, int stride) {
+  static_assert(S < 16, "a digit byte keeps the magnitude in 4 bits");
   const size_t L = (size_t)n_lanes;
-  for (int d = 1; d <= NBUCKET; ++d) cnt[d * stride] = 0;
-  for (int t = 0; t < B; ++t) {
-    int d = digits[((size_t)j * B + t) * L + l];
-    d = (d > 0 && d <= NBUCKET) ? d : 0;
-    dig[t * stride] = (unsigned char)d;
-    if (d) cnt[d * stride] += 1;
+  for (int d = 1; d <= S; ++d) cnt[d * stride] = 0;
+  const int* col = digits + ((size_t)j * B + t0) * L + l;
+  for (int u = 0; u < steps; ++u) {
+    const int e = col[(size_t)u * L];
+    const int d = SIGNED ? e & 15 : e;
+    const bool live = d > 0 && d <= S;
+    dig[u * stride] = live ? (unsigned char)(SIGNED ? d | (e & 16) : d) : 0;
+    if (live) cnt[d * stride] += 1;
   }
   int n = 0;  // counts -> each digit's first slot in the list
-  for (int d = 1; d <= NBUCKET; ++d) {
+  for (int d = 1; d <= S; ++d) {
     const int k = cnt[d * stride];
     cnt[d * stride] = (unsigned char)n;
     n += k;
   }
-  for (int t = 0; t < B; ++t) {
-    const int d = dig[t * stride];
-    if (d) list[cnt[d * stride]++ * stride] = (unsigned char)t;
+  for (int u = 0; u < steps; ++u) {
+    const int d = dig[u * stride] & 15;
+    if (d) list[cnt[d * stride]++ * stride] = (unsigned char)u;
   }
-  Proj done[NBUCKET];
+  u32 zero[NW];
+  if (SIGNED) fe_zero(zero);
+  Proj done[S];
   Proj acc;
   pt_identity(c, acc);
   unsigned touched = 0;
   int cur = 0;
   for (int k = 0; k < n; ++k) {
-    const int t = list[k * stride];
-    const int d = dig[t * stride];
+    const int u = list[k * stride];
+    const int e = dig[u * stride];
+    const int d = e & 15;
     if (d != cur) {
       if (cur) {
         done[cur - 1] = acc;
@@ -202,20 +192,22 @@ HP_HD void bucket_walk(const Consts& c, const int* digits,
       cur = d;
     }
     Aff q;
-    load_base_lm(bases_lm, B, t, l, q);
+    load_base_lm(bases_lm, B, t0 + u, l, q);
+    if (SIGNED && (e & 16)) fe_sub(c, zero, q.y, q.y);
     pt_add_mixed(c, acc, q, acc);
   }
   if (cur) {
     done[cur - 1] = acc;
     touched |= 1u << (cur - 1);
   }
-  u32* out = buckets + (size_t)j * NBUCKET * 3 * NW * L + l;
-  for (int s = 0; s < NBUCKET; ++s) {
+  const size_t OL = (size_t)out_lanes;
+  u32* out = buckets + (size_t)j * S * 3 * NW * OL + ol;
+  for (int s = 0; s < S; ++s) {
     if ((touched >> s) & 1u)
       acc = done[s];
     else
       pt_identity(c, acc);
-    store_proj(out + (size_t)s * 3 * NW * L, L, acc);
+    store_proj(out + (size_t)s * 3 * NW * OL, OL, acc);
   }
 }
 

@@ -18,18 +18,31 @@
 //   own 15 buckets: H x the threads of msm_bucket, each with a chain H x
 //   shorter, against H x the bucket state and merge work. msm_bucket fills
 //   ~123 threads per SM at the comm_T shape (16,192 lanes on 132 SMs), so
-//   more independent threads is the lever on this card. The TPU kernel put
-//   set h at slot s * H + h, because its lane block was fixed and the slot
-//   axis was free; here the lane axis is what the card parallelises, so set
-//   h sits at lane h * n_lanes + l and msm_merge sums it like any lane.
+//   more independent threads is the lever on this card, and at the W
+//   shapes, where window 0's lanes chain up to ~50 adds and the others a
+//   few, the split cuts the long chains that a warp waits on. The TPU
+//   kernel put set h at slot s * H + h, because its lane block was fixed
+//   and the slot axis was free; here the lane axis is what the card
+//   parallelises, so set h sits at lane h * n_lanes + l and msm_merge sums
+//   it like any lane.
 // msm_bucket_signed replaces bucket_signed_call (tools/exp_signed_msm.py:65).
 //   Signed radix-16 digits (magnitude 1..8, sign folded into y as p - y):
-//   8 buckets (768 B of state) instead of 15 (1,440 B), and a 16-add
-//   instead of a 30-add weighted sum; one more window where the scalars'
-//   top nibble can exceed 7 (msm_pallas.signed_bits). The TPU's "2 halves
-//   interleaved" variant is a VMEM scheduling device, not another function;
-//   independent chains per SM are what the t-split gives here, so it has
-//   no counterpart.
+//   8 buckets (768 B of state) instead of 15 (1,440 B), and a 6-add
+//   instead of an 8-add critical path in msm_wsum; one more window where
+//   the scalars' top nibble can exceed 7 (msm_pallas.signed_bits). The
+//   TPU's "2 halves interleaved" variant is a VMEM scheduling device, not
+//   another function; independent chains per SM are what the t-split gives
+//   here, so it has no counterpart.
+// Both run msm_bucket's body (msm.cuh: bucket_walk), not a loop of their
+//   own: a counting sort of each thread's digits in shared memory, one
+//   register accumulator walking the nonzero steps grouped by digit, bases
+//   read from the key's lane-major copy, finished buckets stored in one
+//   coalesced pass. Bound, like msm_bucket, by the latency of each
+//   thread's dependent mixed adds (one per nonzero digit), a warp lasting
+//   as long as its busiest thread: a loop that steps every lane through
+//   all B steps together, as the TPU designs did, runs an add at every
+//   step where any lane of the warp has a nonzero digit, and a bucket
+//   array indexed by the digit lives in local memory.
 #include <cuda_runtime.h>
 
 #include "msm_designs.cuh"
@@ -45,29 +58,41 @@ __global__ void k_msm_chain(Consts c, const u32* __restrict__ bases,
              (int)(gid % n_lanes));
 }
 
-__global__ void k_msm_bucket_tsplit(Consts c, const int* __restrict__ digits,
-                                    const u32* __restrict__ bases,
-                                    u32* __restrict__ buckets, int J, int B,
-                                    int n_lanes, int H) {
-  long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long hl = (long long)H * n_lanes;
-  if (gid >= (long long)J * hl) return;
-  const int j = (int)(gid / hl);
-  const int ol = (int)(gid % hl);
-  const int h = ol / n_lanes, l = ol % n_lanes;
-  const int steps = B / H;
-  bucket_range(c, digits, bases, buckets, B, n_lanes, j, l, h * steps,
-               (h + 1) * steps, ol, H * n_lanes);
+// Block (x, j): launch indices ol = x * BUCKET_LANES + t of job j, each
+// split_walk's thread (msm_designs.cuh); the byte tiles are bucket_walk's.
+// Capped at 128 registers, four blocks an SM (msm_bucket's 168 allow
+// three): the t-split has H x the threads, and at comm_T J=1 H = 4's
+// 64,768 fit one wave only at four. Measured on an H100 against the
+// uncapped build at the four shapes of tools/msm_designs.py, the cap
+// spills 184 B and is 7-22 % faster at comm_T J=1 H = 4, W J=256 and
+// comm_T J=16, 2-3 % slower at comm_T J=1 H = 2 and at W J=16; the signed
+// body fits 128 registers either way.
+template <int S, bool SIGNED>
+__global__ void __launch_bounds__(BUCKET_LANES, 4)
+    k_split_walk(Consts c, const int* __restrict__ digits,
+                 const u32* __restrict__ bases_lm, u32* __restrict__ buckets,
+                 int B, int n_lanes, int H) {
+  __shared__ unsigned char dig[BUCKET_MAX_STEPS * BUCKET_LANES];
+  __shared__ unsigned char list[BUCKET_MAX_STEPS * BUCKET_LANES];
+  __shared__ unsigned char cnt[(NBUCKET + 1) * BUCKET_LANES];
+  const int t = threadIdx.x;
+  const int ol = blockIdx.x * BUCKET_LANES + t;
+  if (ol >= H * n_lanes) return;
+  split_walk<S, SIGNED>(c, digits, bases_lm, buckets, B, n_lanes, H,
+                        blockIdx.y, ol, dig + t, list + t, cnt + t,
+                        BUCKET_LANES);
 }
 
-__global__ void k_msm_bucket_signed(Consts c, const int* __restrict__ digits,
-                                    const u32* __restrict__ bases,
-                                    u32* __restrict__ buckets, int J, int B,
-                                    int n_lanes) {
-  long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (gid >= (long long)J * n_lanes) return;
-  signed_lane(c, digits, bases, buckets, B, n_lanes, (int)(gid / n_lanes),
-              (int)(gid % n_lanes));
+template <int S, bool SIGNED>
+static int launch_split_walk(const u32* consts, const int* digits,
+                             const u32* bases_lm, u32* buckets, int J, int B,
+                             int n_lanes, int H, void* stream) {
+  if (B > BUCKET_MAX_STEPS || J > 65535 || H < 1 || B % H)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(blocks_for((long long)H * n_lanes, BUCKET_LANES), J);
+  k_split_walk<S, SIGNED><<<grid, BUCKET_LANES, 0, (cudaStream_t)stream>>>(
+      load_consts(consts), digits, bases_lm, buckets, B, n_lanes, H);
+  return (int)cudaGetLastError();
 }
 
 extern "C" {
@@ -81,24 +106,20 @@ int hp_msm_chain(const u32* consts, const u32* bases, u32* out, int J, int B,
   return (int)cudaGetLastError();
 }
 
+// bases_lm: the lane-major (n_lanes, B, 2, 8) bases, 16-byte aligned; H
+// divides B <= BUCKET_MAX_STEPS.
 int hp_msm_bucket_tsplit(const u32* consts, const int* digits,
-                         const u32* bases, u32* buckets, int J, int B,
+                         const u32* bases_lm, u32* buckets, int J, int B,
                          int n_lanes, int H, void* stream) {
-  const int threads = 128;
-  k_msm_bucket_tsplit<<<blocks_for((long long)J * H * n_lanes, threads),
-                        threads, 0, (cudaStream_t)stream>>>(
-      load_consts(consts), digits, bases, buckets, J, B, n_lanes, H);
-  return (int)cudaGetLastError();
+  return launch_split_walk<NBUCKET, false>(consts, digits, bases_lm, buckets,
+                                           J, B, n_lanes, H, stream);
 }
 
 int hp_msm_bucket_signed(const u32* consts, const int* digits,
-                         const u32* bases, u32* buckets, int J, int B,
+                         const u32* bases_lm, u32* buckets, int J, int B,
                          int n_lanes, void* stream) {
-  const int threads = 128;
-  k_msm_bucket_signed<<<blocks_for((long long)J * n_lanes, threads), threads,
-                        0, (cudaStream_t)stream>>>(
-      load_consts(consts), digits, bases, buckets, J, B, n_lanes);
-  return (int)cudaGetLastError();
+  return launch_split_walk<NSIGNED, true>(consts, digits, bases_lm, buckets,
+                                          J, B, n_lanes, 1, stream);
 }
 
 }  // extern "C"

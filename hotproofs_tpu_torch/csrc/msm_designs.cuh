@@ -1,7 +1,9 @@
 // Per-thread bodies of the bucket-design kernels (msm_designs.cu): the
 // candidate alternatives to msm_bucket that the JAX package tried on the TPU
 // as experiments. __host__ __device__, so the CPU tests run them through
-// host_check.cc against the plain torch versions (ops/msm_pallas.py).
+// host_check.cc against the plain torch versions (ops/msm_pallas.py). The
+// t-split and the signed digits run msm_bucket's body, bucket_walk
+// (msm.cuh), over a step range and over signed digits.
 //
 // Layouts (u32 words; see msm.cuh for digits and bases):
 //   chain   (J, 3, 8, n_lanes)            one accumulator per (job, lane)
@@ -18,7 +20,7 @@ constexpr int NSIGNED = 8;  // signed-digit magnitudes 1..8; 0 is skipped
 
 // msm_chain body: lane l of job j mixed-adds all B streamed bases, padding
 // points included, into one accumulator that starts at the identity. No
-// digit is read: the add chain of bucket_range without its bucket select.
+// digit is read: a bucket kernel's add chain without its bucket select.
 HP_HD void chain_lane(const Consts& c, const u32* bases, u32* out, int B,
                       int n_lanes, int j, int l) {
   Proj acc;
@@ -32,28 +34,20 @@ HP_HD void chain_lane(const Consts& c, const u32* bases, u32* out, int B,
   store_proj(out + (size_t)j * 3 * NW * L + l, L, acc);
 }
 
-// msm_bucket_signed body: lane l of job j streams its B bases; a digit
-// with magnitude 1..8 mixed-adds the base, with y replaced by p - y when
-// its sign bit is set, into bucket mag - 1.
-HP_HD void signed_lane(const Consts& c, const int* digits, const u32* bases,
-                       u32* buckets, int B, int n_lanes, int j, int l) {
-  Proj bk[NSIGNED];
-  for (int s = 0; s < NSIGNED; ++s) pt_identity(c, bk[s]);
-  const size_t L = (size_t)n_lanes;
-  u32 zero[NW];
-  fe_zero(zero);
-  for (int t = 0; t < B; ++t) {
-    int e = digits[((size_t)j * B + t) * L + l];
-    int mag = e & 15;
-    if (mag == 0 || mag > NSIGNED) continue;
-    Aff q;
-    load_base(bases, L, t, l, q);
-    if ((e >> 4) & 1) fe_sub(c, zero, q.y, q.y);
-    pt_add_mixed(c, bk[mag - 1], q, bk[mag - 1]);
-  }
-  for (int s = 0; s < NSIGNED; ++s)
-    store_proj(buckets + ((size_t)j * NSIGNED + s) * 3 * NW * L + l, L,
-               bk[s]);
+// The design kernels' thread map: launch index ol of H * n_lanes (one
+// job) is set h = ol / n_lanes of lane l = ol % n_lanes, over steps
+// [h B/H, (h+1) B/H) of that lane, stored at output lane ol; the signed
+// kernel is H = 1 over S = NSIGNED signed digits. host_check.cc replays
+// it for every launch index.
+template <int S, bool SIGNED>
+HP_HD void split_walk(const Consts& c, const int* digits, const u32* bases_lm,
+                      u32* buckets, int B, int n_lanes, int H, int j, int ol,
+                      unsigned char* dig, unsigned char* list,
+                      unsigned char* cnt, int stride) {
+  const int h = ol / n_lanes, l = ol % n_lanes, steps = B / H;
+  bucket_walk<S, SIGNED>(c, digits, bases_lm, buckets, B, n_lanes, j, l,
+                         h * steps, steps, ol, H * n_lanes, dig, list, cnt,
+                         stride);
 }
 
 }  // namespace hp

@@ -29,6 +29,9 @@ K1, each followed by K2 and K3 over its own slot count S:
   msm_bucket_signed  (replaces bucket_signed_call,
                       tools/exp_signed_msm.py:65)
 
+The last two run K1's sorted walk (csrc/msm.cuh: bucket_walk) over a step
+range of each lane and over signed digits.
+
 Bases that are not a key's (Spartan's matrix tables are points of their
 own) come through msm_var, with the kernel of csrc/points.cu:
 
@@ -75,7 +78,8 @@ design does about it:
 
 Kernel layouts (int32 tensors holding u32 words):
   digits  (J, B, n_lanes)         bases   (B, 2, 8, n_lanes)
-  bases_lm (n_lanes, B, 2, 8): K1's lane-major copy (lane_major)
+  bases_lm (n_lanes, B, 2, 8): the lane-major copy (lane_major) that K1,
+           the t-split and the signed kernel read
   buckets (J, S, 3, 8, n_lanes)   reduced (J, S, 3, 8)      sums (J, 3, 8)
 with S = 15 slots for K1 and the t-split (whose H sets sit on the lane
 axis, H * n_lanes lanes), 8 for the signed digits and 1 for the chain.
@@ -264,21 +268,38 @@ def msm_bucket_plain(spec: C.CurveSpec, digits: torch.Tensor,
     return _buckets_plain(spec, digits, bases, NBUCKET, signed=False)
 
 
+def _walk_inputs(name: str, digits: torch.Tensor,
+                 bases: torch.Tensor) -> Tuple[int, int, int]:
+    """Check a walk kernel's (J, B, n_lanes) digits and (B, 2, 8, n_lanes)
+    bases, B <= BUCKET_MAX_STEPS; -> (J, B, n_lanes)."""
+    J, B, L = digits.shape
+    _check_input(f"{name} digits", digits, (J, B, L))
+    _check_input(f"{name} bases", bases, (B, 2, NW, L))
+    if B > BUCKET_MAX_STEPS:
+        raise ValueError(f"{name}: B = {B} > {BUCKET_MAX_STEPS} steps")
+    return J, B, L
+
+
+def _walk_bases_lm(name: str, digits: torch.Tensor, bases: torch.Tensor,
+                   bases_lm: Optional[torch.Tensor]) -> torch.Tensor:
+    """The lane-major copy a walk kernel reads: bases_lm, checked, or
+    lane_major(bases) made here."""
+    _, B, L = digits.shape
+    lm = lane_major(bases) if bases_lm is None else bases_lm
+    _check_input(f"{name} bases_lm", lm, (L, B, 2, NW))
+    _on_cuda(name, digits, lm)
+    return lm
+
+
 def msm_bucket(spec: C.CurveSpec, digits: torch.Tensor, bases: torch.Tensor,
                bases_lm: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K1: (J, B, n_lanes) digits x (B, 2, 8, n_lanes) bases -> per-lane
     buckets (J, 15, 3, 8, n_lanes); B <= BUCKET_MAX_STEPS. The kernel
     reads bases_lm = lane_major(bases), made here if not given."""
-    J, B, L = digits.shape
-    _check_input("msm_bucket digits", digits, (J, B, L))
-    _check_input("msm_bucket bases", bases, (B, 2, NW, L))
-    if B > BUCKET_MAX_STEPS:
-        raise ValueError(f"msm_bucket: B = {B} > {BUCKET_MAX_STEPS} steps")
+    J, B, L = _walk_inputs("msm_bucket", digits, bases)
     if not _on_cuda("msm_bucket", digits, bases):
         return msm_bucket_plain(spec, digits, bases)
-    lm = lane_major(bases) if bases_lm is None else bases_lm
-    _check_input("msm_bucket bases_lm", lm, (L, B, 2, NW))
-    _on_cuda("msm_bucket", digits, lm)
+    lm = _walk_bases_lm("msm_bucket", digits, bases, bases_lm)
     out = torch.empty((J, NBUCKET, 3, NW, L), dtype=torch.int32,
                       device=digits.device)
     if J * L:
@@ -673,23 +694,27 @@ def msm_bucket_tsplit_plain(spec: C.CurveSpec, digits: torch.Tensor,
 
 
 def msm_bucket_tsplit(spec: C.CurveSpec, digits: torch.Tensor,
-                      bases: torch.Tensor, H: int) -> torch.Tensor:
+                      bases: torch.Tensor, H: int,
+                      bases_lm: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
     """K1 with H bucket sets per lane over disjoint step ranges: (J, B,
     n_lanes) digits x (B, 2, 8, n_lanes) bases -> (J, 15, 3, 8, H n_lanes),
-    set h of lane l at lane h * n_lanes + l (K2 sums it like any lane)."""
-    J, B, L = digits.shape
-    _check_input("msm_bucket_tsplit digits", digits, (J, B, L))
-    _check_input("msm_bucket_tsplit bases", bases, (B, 2, NW, L))
+    set h of lane l at lane h * n_lanes + l (K2 sums it like any lane);
+    B <= BUCKET_MAX_STEPS. The kernel runs K1's sorted walk over each
+    set's steps and reads bases_lm = lane_major(bases), made here if not
+    given."""
+    J, B, L = _walk_inputs("msm_bucket_tsplit", digits, bases)
     if H < 1 or B % H:
         raise ValueError(f"msm_bucket_tsplit: H = {H} must divide B = {B}")
     if not _on_cuda("msm_bucket_tsplit", digits, bases):
         return msm_bucket_tsplit_plain(spec, digits, bases, H)
+    lm = _walk_bases_lm("msm_bucket_tsplit", digits, bases, bases_lm)
     out = torch.empty((J, NBUCKET, 3, NW, H * L), dtype=torch.int32,
                       device=digits.device)
     if J * L:
         _launch("msm_bucket_tsplit", lib().hp_msm_bucket_tsplit,
-                _consts_arg(spec), _ptr(digits), _ptr(bases), _ptr(out), J,
-                B, L, H, device=digits.device)
+                _consts_arg(spec), _ptr(digits), _ptr(lm), _ptr(out), J, B,
+                L, H, device=digits.device)
     return out
 
 
@@ -728,18 +753,22 @@ def msm_bucket_signed_plain(spec: C.CurveSpec, digits: torch.Tensor,
 
 
 def msm_bucket_signed(spec: C.CurveSpec, digits: torch.Tensor,
-                      bases: torch.Tensor) -> torch.Tensor:
+                      bases: torch.Tensor,
+                      bases_lm: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
     """K1 on signed digits: (J, B, n_lanes) signed_digits_tm x (B, 2, 8,
-    n_lanes) bases -> (J, 8, 3, 8, n_lanes) buckets for magnitudes 1..8."""
-    J, B, L = digits.shape
-    _check_input("msm_bucket_signed digits", digits, (J, B, L))
-    _check_input("msm_bucket_signed bases", bases, (B, 2, NW, L))
+    n_lanes) bases -> (J, 8, 3, 8, n_lanes) buckets for magnitudes 1..8;
+    B <= BUCKET_MAX_STEPS. The kernel runs K1's sorted walk keyed on the
+    magnitude and reads bases_lm = lane_major(bases), made here if not
+    given."""
+    J, B, L = _walk_inputs("msm_bucket_signed", digits, bases)
     if not _on_cuda("msm_bucket_signed", digits, bases):
         return msm_bucket_signed_plain(spec, digits, bases)
+    lm = _walk_bases_lm("msm_bucket_signed", digits, bases, bases_lm)
     out = torch.empty((J, NSIGNED, 3, NW, L), dtype=torch.int32,
                       device=digits.device)
     if J * L:
         _launch("msm_bucket_signed", lib().hp_msm_bucket_signed,
-                _consts_arg(spec), _ptr(digits), _ptr(bases), _ptr(out), J,
+                _consts_arg(spec), _ptr(digits), _ptr(lm), _ptr(out), J,
                 B, L, device=digits.device)
     return out

@@ -12,7 +12,10 @@ N = 16,384 and 131,072 elements:
           to its plain version, stage 5 to the product, and their times;
   parts   (bench_pallas_parts.py) mont_mul_part conv, conv3 and norm, the
           full product, and conv_mma, the convolution on the tensor cores,
-          with the line that says whether it matches the conv part;
+          with the line that says whether it matches the conv part; then
+          the one PyTorch call that computes conv_mma's columns (a grouped
+          float32 conv1d, library_conv), timed the same way, and whether
+          its columns equal conv_mma's;
   msm     (bench_mxu_msm.py) the multiply rate at N = 2^17, then msm_many
           at the comm_T and comm_W shapes over the real key: its time and
           its result equal, as an affine point, to the host's sum (the port
@@ -265,11 +268,40 @@ def part_parts(lines: _Lines, inp: Inputs, reps: int) -> None:
               None, True, "(checked above)", MULS["mont_mul"])
     ok, plain_ms = _checked(lambda: PF.conv_mma(at, bt),
                             lambda: PF.conv_mma_plain(at, bt))
-    match = torch.equal(PF.conv_mma(at, bt) & 0xFF,
-                        PF.mont_mul_part(SPEC, at, bt, "conv"))
+    got = PF.conv_mma(at, bt)
+    match = torch.equal(got & 0xFF, PF.mont_mul_part(SPEC, at, bt, "conv"))
     lines.add("conv_mma", ms(PF.conv_mma), plain_ms, ok and match,
               f"== plain, mma conv match: {match}", MULS["conv_mma"],
               mma_ops=MMA_OPS)
+    library_conv(lines, inp, reps, got)
+
+
+def library_conv(lines: _Lines, inp: Inputs, reps: int,
+                 mma: torch.Tensor) -> None:
+    """The one PyTorch call that computes conv_mma's function, timed as
+    conv_mma is, for its library_ms (the port never calls it): a grouped
+    float32 conv1d, a group per element, over a digits padded with 31
+    zeros on the left and a 32-tap kernel of b's digits flipped, which
+    gives column c = sum_{j+k=c} a_j b_k for c < 32. Every column is at
+    most 32 * 255^2 < 2^24, so float32 holds it exactly when no TF32 is
+    allowed (cuDNN allows it by default for convolutions). The inputs are
+    converted before the timing; the line's check says whether the columns
+    equal mma, conv_mma's output on operand set 0."""
+    dev = inp.at.device
+    xs = torch.nn.functional.pad(
+        inp.at.float().transpose(1, 2), (F.N_LIMBS - 1, 0)).contiguous()
+    ws = inp.bt.float().transpose(1, 2).flip(-1).unsqueeze(2).contiguous()
+    conv = lambda x, w: torch.nn.functional.conv1d(x[None], w,
+                                                   groups=inp.n)[0]
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=False, allow_tf32=False):
+        got = conv(xs[0], ws[0])
+        exact = torch.equal(got.T.to(torch.int32), mma)
+        ms = kernel_ms(dev, lambda i: conv(xs[i % inp.sets],
+                                           ws[i % inp.sets]), reps)
+    lines.add("conv1d (library)", ms, None, True,
+              f"columns == conv_mma: {exact}", MULS["conv_mma"])
+    lines.rows["conv1d (library)"]["exact"] = exact
 
 
 def host_msm_windowed(spec: C.CurveSpec, scalars: Sequence[int],

@@ -193,9 +193,10 @@ class Inputs(NamedTuple):
     scalars: torch.Tensor
     digits: torch.Tensor       # (J, B, n_lanes) radix-16
     bases: torch.Tensor        # (B, 2, 8, n_lanes)
-    bases_lm: torch.Tensor     # its lane-major copy, which msm_bucket reads
+    bases_lm: torch.Tensor     # its lane-major copy, which the walks read
     sdigits: torch.Tensor      # signed, plan(m, signed_bits(bits))
     sbases: torch.Tensor
+    sbases_lm: torch.Tensor
     plan_bases: Dict[int, tuple]   # B -> the bases for B and their copy
 
 
@@ -210,7 +211,8 @@ def prepare(key: CommitmentKey, sc: torch.Tensor, bits: int) -> Inputs:
     return Inputs(J, m, bits, sc, recode("bucket", sc, bits),
                   key.bases(m, bits), key.bases_lm(m, bits),
                   recode("signed", sc, bits),
-                  key.bases(m, MP.signed_bits(bits)), wide)
+                  key.bases(m, MP.signed_bits(bits)),
+                  key.bases_lm(m, MP.signed_bits(bits)), wide)
 
 
 DESIGNS = ("bucket", "chain") + tuple(f"tsplit H={h}" for h in TSPLITS) \
@@ -227,9 +229,10 @@ def bucket_stage(name: str, inp: Inputs,
         return MP.msm_chain(SPEC, inp.bases, inp.J)[:, None]
     if name.startswith("tsplit H="):
         H = int(name.split("=")[1])
-        return MP.msm_bucket_tsplit(SPEC, digits, inp.bases, H)
+        return MP.msm_bucket_tsplit(SPEC, digits, inp.bases, H,
+                                    inp.bases_lm)
     if name == "signed":
-        return MP.msm_bucket_signed(SPEC, digits, inp.sbases)
+        return MP.msm_bucket_signed(SPEC, digits, inp.sbases, inp.sbases_lm)
     raise ValueError(f"unknown design {name!r}")
 
 

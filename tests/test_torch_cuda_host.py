@@ -270,20 +270,21 @@ def test_design_kernel_bodies_vs_plain(hc, m, bits):
     assert np.array_equal(_host(hc, "hc_msm_chain", ch.shape, _p(cw),
                                 _p(bn), (2, b, n_lanes)), ch.numpy())
 
+    lm = np.ascontiguousarray(MP.lane_major(bases).numpy())
     d = MP.digits_tm(sc, m, b, lpw, w4)
     dn = np.ascontiguousarray(d.numpy())
     for H in (2, 4):
         ts = MP.msm_bucket_tsplit_plain(spec, d, bases, H)
         assert ts.shape == (2, MP.NBUCKET, 3, 8, H * n_lanes)
         assert np.array_equal(_host(
-            hc, "hc_msm_bucket_tsplit", ts.shape, _p(cw), _p(dn), _p(bn),
+            hc, "hc_msm_bucket_tsplit", ts.shape, _p(cw), _p(dn), _p(lm),
             (2, b, n_lanes, H)), ts.numpy()), H
 
     sd = MP.signed_digits_tm(sc, m, b, lpw, w4)
     sn = np.ascontiguousarray(sd.numpy())
     sg = MP.msm_bucket_signed_plain(spec, sd, bases)
     sg_h = _host(hc, "hc_msm_bucket_signed", sg.shape, _p(cw), _p(sn),
-                 _p(bn), (2, b, n_lanes))
+                 _p(lm), (2, b, n_lanes))
     assert np.array_equal(sg_h, sg.numpy())
 
     red = MP.msm_merge_plain(spec, sg)
@@ -295,6 +296,67 @@ def test_design_kernel_bodies_vs_plain(hc, m, bits):
     s_h = _host(hc, "hc_msm_wsum", s.shape, _p(cw),
                 _p(np.ascontiguousarray(red_h)), (2, MP.NSIGNED))
     assert np.array_equal(s_h, s.numpy())
+
+
+def _edge_digits(rng, J: int, B: int, L: int, signed: bool) -> np.ndarray:
+    """(J, B, L) sparse digits (about 1 in 10 nonzero) with the walk's edge
+    lanes: lane 0 of job 0 nonzero only in the first half of its steps,
+    lane 1 only in the second, lane 2 every step at one digit (signed:
+    magnitude 8, negative), lane 3 every step nonzero; job 1 all zero.
+    Signed digits are mag | neg << 4, mag in 0..8."""
+    top = MP.NSIGNED if signed else MP.NBUCKET
+    d = rng.integers(1, top + 1, size=(J, B, L))
+    if signed:
+        d |= rng.integers(0, 2, size=(J, B, L)) << 4
+    d *= rng.random((J, B, L)) < 0.1
+    half = np.arange(B) < B // 2
+    d[0, :, 0] = np.where(half, rng.integers(1, top + 1, size=B), 0)
+    d[0, :, 1] = np.where(half, 0, rng.integers(1, top + 1, size=B))
+    d[0, :, 2] = MP.NSIGNED | 16 if signed else 7
+    d[0, :, 3] = rng.integers(1, top + 1, size=B)
+    d[1] = 0
+    return np.ascontiguousarray(d.astype(np.int32))
+
+
+@pytest.mark.parametrize("design,H", [("tsplit", 1), ("tsplit", 2),
+                                      ("tsplit", 4), ("tsplit", 64),
+                                      ("signed", 1)])
+def test_split_walk_vs_plain_on_edge_digits(hc, design, H):
+    """The t-split's and the signed kernel's walk (bucket_walk over a step
+    range, and over signed digits) under g++ == their plain versions, bit
+    for bit, at the kernel's largest B = 64 and H = 1, 2, 4 and 64 (one
+    step a set): lanes whose digits all fall in one half of the range, a
+    lane of one repeated digit (signed: every digit magnitude 8 and
+    negative), a lane with every step nonzero, an all-zero job. H = 1 also
+    equals hc_msm_bucket, the main path's walk."""
+    spec = C.PALLAS
+    rng = np.random.default_rng(H + (design == "signed"))
+    J, B, L = 3, MP.BUCKET_MAX_STEPS, 37
+    d = _edge_digits(rng, J, B, L, design == "signed")
+    tm = torch.from_numpy(np.ascontiguousarray(_random_points(
+        rng, spec.base, (B, L))[:, :, :2].transpose(0, 2, 3, 1)).view(
+            np.int32))                                        # (B, 2, 8, L)
+    lm = MP.lane_major(tm).numpy()
+    cw = MP.consts_words(spec)
+    dt = torch.from_numpy(d)
+    if design == "signed":
+        want = MP.msm_bucket_signed_plain(spec, dt, tm)
+        got = _host(hc, "hc_msm_bucket_signed", want.shape, _p(cw), _p(d),
+                    _p(lm), (J, B, L))
+    else:
+        want = MP.msm_bucket_tsplit_plain(spec, dt, tm, H)
+        got = _host(hc, "hc_msm_bucket_tsplit", want.shape, _p(cw), _p(d),
+                    _p(lm), (J, B, L, H))
+    assert np.array_equal(got, want.numpy())
+    assert not got[1, :, 2].any()                   # the zero job: identity
+    if design == "tsplit" and H == 1:
+        walk = _host(hc, "hc_msm_bucket", want.shape, _p(cw), _p(d), _p(lm),
+                     (J, B, L))
+        assert np.array_equal(got, walk)
+    if design == "tsplit" and H == 2:
+        # lane 0's digits all fall in set 0, lane 1's in set 1
+        assert not got[0, :, 2, :, L + 0].any() and got[0, :, 2, :, 0].any()
+        assert not got[0, :, 2, :, 1].any() and got[0, :, 2, :, L + 1].any()
 
 
 def test_to_affine_body_vs_plain_and_host(hc):

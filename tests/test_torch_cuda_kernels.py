@@ -160,6 +160,42 @@ def test_design_kernels_vs_plain_and_host(dev, key, bits):
     assert sums(bk) == want
 
 
+@pytest.mark.parametrize("design,H", [("tsplit", 4), ("tsplit", 2),
+                                      ("signed", 1)])
+def test_walk_design_kernels_on_sparse_digits(dev, design, H):
+    """The t-split and signed kernels (msm_bucket's sorted walk over a step
+    range, over signed digits) at B = 64 on digits as sparse as the W
+    commits' (a tenth of the lanes half nonzero, as window 0, the rest
+    0.3 %), an all-zero job: kernel == plain bit for bit, with the
+    lane-major bases given and made by the wrapper, one launch each."""
+    rng = np.random.default_rng(H)
+    J, B, L = 3, MP.BUCKET_MAX_STEPS, 1000
+    top = MP.NSIGNED if design == "signed" else MP.NBUCKET
+    d = rng.integers(1, top + 1, size=(J, B, L))
+    if design == "signed":
+        d |= rng.integers(0, 2, size=(J, B, L)) << 4
+    dense = np.arange(L) < L // 10
+    d *= rng.random((J, B, L)) < np.where(dense, 0.5, 0.003)
+    d[1] = 0
+    d = torch.from_numpy(d.astype(np.int32)).to(dev)
+    w = rng.integers(0, 1 << 32, size=(B, 2, 8, L), dtype=np.uint32)
+    w[:, :, 7] &= 0x3FFFFFFF                # canonical: below 2^254 < p
+    tm = torch.from_numpy(w.view(np.int32)).to(dev)
+    lm = MP.lane_major(tm)
+    if design == "signed":
+        kern = lambda x: MP.msm_bucket_signed(SPEC, d, tm, x)
+        want = MP.msm_bucket_signed_plain(SPEC, d, tm)
+    else:
+        kern = lambda x: MP.msm_bucket_tsplit(SPEC, d, tm, H, x)
+        want = MP.msm_bucket_tsplit_plain(SPEC, d, tm, H)
+    name = f"msm_bucket_{design}"
+    before = MP.launches[name]
+    for x in (lm, None):
+        assert torch.equal(kern(x), want)
+    assert MP.launches[name] == before + 2
+    assert not bool(want[1, :, 2].any())
+
+
 @pytest.mark.parametrize("n,windows", [(1, 64), (37, 10), (300, 64)])
 def test_scale16_kernel_vs_plain(dev, n, windows):
     """scale16 == its plain version bit for bit (the same doublings), the
