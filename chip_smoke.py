@@ -22,9 +22,10 @@ exit and no result line:
      oracle's root, proves two chunks in lockstep (prove_many), verifies
      both, and rejects a proof with one comm_T changed;
   5. each kernel's launch count during phase 4 (every one must be > 0);
-  6. the MSM bucket designs (tools/msm_designs.py): msm_chain,
-     msm_bucket_tsplit and msm_bucket_signed (both on msm_bucket's sorted
-     walk over the key's lane-major bases) and the 8-slot merge and wsum
+  6. the MSM bucket designs (tools/msm_designs.py): msm_chain (at H = 1,
+     msm_bucket's thread map, and at the H of ops/msm_pallas.py:
+     chain_split), msm_bucket_tsplit and msm_bucket_signed (both on
+     msm_bucket's sorted walk over the key's lane-major bases) and the 8-slot merge and wsum
      against their plain versions (seeded, m = 1000, 40 and 256 bits, then
      at the comm_T shape, exact equality, kernel and plain times), then
      the designs path at the comm_T J=1, W J=16, W J=256 and comm_T J=16
@@ -116,7 +117,8 @@ exit and no result line:
      then
      h_tables against its plain version on a seeded sixteenth of the rows
      of each BLAKE3 side's call (and the whole call's output on those
-     rows), timed on the slice and whole beside its bound, and the kernel's
+     rows), timed on the slice and whole beside its bound and its lane
+     map's walk and join warp-steps (SM cycles a warp-step), and the kernel's
      tables of phase 9's chunk circuit against the host fold_point loop;
      the peak device memory;
  12. the per-step prover, checkpoints and the mesh, with the launch counts
@@ -319,14 +321,18 @@ def designs_phase(prover, data, dev, rng, note, stats, bounds,
     def design_check(inp, stats_out):
         """Each design kernel, and the 8-slot merge and wsum, == its plain
         version on inp. With stats_out, also time each (kernel: mean of 5
-        after a warm-up; plain: one run), record the times of msm_chain,
-        the H = 2 t-split and the signed kernel there, and return all
-        times by label."""
+        after a warm-up; plain: one run), record the times of msm_chain at
+        chain_split's H (and that H), the H = 2 t-split and the signed
+        kernel there, and return all times by label."""
         sd = MP.msm_bucket_signed(spec, inp.sdigits, inp.sbases,
                                   inp.sbases_lm)
         red = MP.msm_merge(spec, sd)
+        H = MP.chain_split(inp.J, inp.bases.shape[-1], inp.bases.shape[0])
         runs = {
-            "msm_chain": (
+            "msm_chain H=1": (
+                lambda: MP.msm_chain(spec, inp.bases, inp.J, 1),
+                lambda: MP.msm_chain_plain(spec, inp.bases, inp.J, 1)),
+            f"msm_chain H={H}": (
                 lambda: MP.msm_chain(spec, inp.bases, inp.J),
                 lambda: MP.msm_chain_plain(spec, inp.bases, inp.J)),
             **{f"msm_bucket_tsplit H={h}": (
@@ -357,11 +363,12 @@ def designs_phase(prover, data, dev, rng, note, stats, bounds,
             if stats_out is not None:
                 times[label] = (cuda_ms(kern, 5), plain_ms)
         if stats_out is not None:
-            for label in ("msm_chain", "msm_bucket_tsplit H=2",
+            for label in (f"msm_chain H={H}", "msm_bucket_tsplit H=2",
                           "msm_bucket_signed"):
                 name = label.split()[0]
                 stats_out[name]["ms"], stats_out[name]["plain_ms"] = \
                     times[label]
+            stats_out["msm_chain"]["H"] = H
         return times
 
     m = 1000
@@ -375,9 +382,10 @@ def designs_phase(prover, data, dev, rng, note, stats, bounds,
         sc = torch.from_numpy(raw.astype(np.int32)).to(dev)
         inp = D.prepare(ck, sc, bits)
         design_check(inp, None)
-        say("6 designs", f"seeded {bits} bits (J=3, m={m}): msm_chain, "
-            "msm_bucket_tsplit (H=2, 4), msm_bucket_signed, merge and wsum "
-            "(S=8) == plain")
+        B, _, _, L = inp.bases.shape
+        say("6 designs", f"seeded {bits} bits (J=3, m={m}): msm_chain "
+            f"(H=1, {MP.chain_split(3, L, B)}), msm_bucket_tsplit (H=2, "
+            "4), msm_bucket_signed, merge and wsum (S=8) == plain")
     J, m, bits = D.SHAPES["comm_T J=1"]
     inp = D.prepare(ck, D.random_scalars(rng, J, m, bits, dev), bits)
     times = design_check(inp, stats)
@@ -387,9 +395,11 @@ def designs_phase(prover, data, dev, rng, note, stats, bounds,
     SL = inp.sdigits.shape[-1]
     pt = 3 * 8 * 4                                  # bytes of a point
     signed_out = J * MP.NSIGNED * pt * SL
+    chain_bound = bound(MONT_MIXED_ADD * J * B * L,
+                        nbytes(inp.bases) + J * pt * L, rate)
     label_bounds = {
-        "msm_chain": bound(MONT_MIXED_ADD * J * B * L,
-                           nbytes(inp.bases) + J * pt * L, rate),
+        **{label: chain_bound for label in times
+           if label.startswith("msm_chain")},
         **{f"msm_bucket_tsplit H={h}": bound(
             MONT_MIXED_ADD * live, nbytes(inp.digits, inp.bases)
             + J * MP.NBUCKET * pt * h * L, rate) for h in D.TSPLITS},
@@ -407,7 +417,8 @@ def designs_phase(prover, data, dev, rng, note, stats, bounds,
         f"{k} {v[0]:.3f} ms (plain {v[1]:.1f} ms, bound "
         f"{label_bounds[k][0]:.4f} ms by {label_bounds[k][1]})"
         for k, v in times.items()))
-    for label in ("msm_chain", "msm_bucket_tsplit H=2", "msm_bucket_signed"):
+    bounds["msm_chain"] = chain_bound
+    for label in ("msm_bucket_tsplit H=2", "msm_bucket_signed"):
         bounds[label.split()[0]] = label_bounds[label]
     del inp
     torch.cuda.empty_cache()
@@ -1248,7 +1259,8 @@ def capturing_tables(seen: list):
 
 
 def csr_rows(csr, rows: torch.Tensor):
-    """The CSR of `rows` (ascending) of csr, each row's nonzeros in order:
+    """The CSR of `rows` (ascending) of csr, each row's nonzeros in order,
+    its lane alloc, and the rows in the order the whole call runs them:
     the kernel gives each row what it gives it within the whole."""
     from hotproofs_tpu_torch.ops import tables as TB
 
@@ -1258,12 +1270,15 @@ def csr_rows(csr, rows: torch.Tensor):
     idx = torch.repeat_interleave(rp[rows], lens) + (
         torch.arange(int(lens.sum()), device=rows.device)
         - torch.repeat_interleave(first, lens))
+    rank = torch.empty_like(csr.order)
+    rank[csr.order.long()] = torch.arange(csr.rows, dtype=rank.dtype,
+                                          device=rank.device)
     i32 = lambda t: t.to(torch.int32).contiguous()
     return TB.TableCSR(
         row_ptr=i32(torch.cat([lens.new_zeros(1), torch.cumsum(lens, 0)])),
-        order=i32(torch.argsort(lens, descending=True, stable=True)),
-        cols=csr.cols[idx].contiguous(), mag=csr.mag[idx].contiguous(),
-        neg=csr.neg[idx].contiguous())
+        order=i32(torch.argsort(rank[rows])), alloc=csr.alloc[rows]
+        .contiguous(), cols=csr.cols[idx].contiguous(),
+        mag=csr.mag[idx].contiguous(), neg=csr.neg[idx].contiguous())
 
 
 def table_bound(csr, out: torch.Tensor, rate: float):
@@ -1274,7 +1289,8 @@ def table_bound(csr, out: torch.Tensor, rate: float):
     from hotproofs_tpu_torch.ops import tables as TB
 
     mixed, joins, pts = TB.table_work(csr)
-    nb = nbytes(csr.row_ptr, csr.order, csr.cols, csr.mag, csr.neg, out) \
+    nb = nbytes(csr.row_ptr, csr.order, csr.alloc, csr.cols, csr.mag,
+                csr.neg, out) \
         + 64 * pts
     ms, by = bound(MONT_MIXED_ADD * mixed + MONT_ADD * joins, nb, rate)
     return ms, by, (f"{mixed} mixed adds, {joins} joins, {pts} base points, "
@@ -1490,14 +1506,17 @@ def rec_compress_phase(prover, rp, root, dev, note, stats, bounds, rate,
         bnd = table_bound(part, got, rate)
         ms_full = cuda_ms(lambda: TB.h_tables(spec, csr, bl, lpw), 3)
         bnd_full = table_bound(csr, full, rate)
+        walk, join = TB.table_steps(csr)
+        cycles = ms_full * 1e-3 * rate / IMUL_PER_CLOCK_SM / (walk + join)
         say(tag, f"h_tables == plain on {rows.shape[0]} rows of "
             f"{spec.name}'s {csr.rows} (a seeded sixteenth and the 8 "
             f"longest), and the whole call's rows equal the slice's: slice "
             f"{ms:.3f} ms (plain {plain_ms:.1f} ms, bound {bnd[0]:.4f} ms "
             f"by {bnd[1]}: {bnd[2]}); whole {ms_full:.3f} ms (bound "
             f"{bnd_full[0]:.4f} ms by {bnd_full[1]}, "
-            f"{100 * bnd_full[0] / ms_full:.1f} % of it: {bnd_full[2]}) "
-            f"[{smi}]")
+            f"{100 * bnd_full[0] / ms_full:.1f} % of it: {bnd_full[2]}); "
+            f"lane map: {walk} walk + {join} join warp-steps, {cycles:.0f} "
+            f"SM cycles a warp-step [{smi}]")
         if spec.name == rs.side1.curve.name:
             stats["h_tables"]["ms"] = ms
             stats["h_tables"]["plain_ms"] = plain_ms
@@ -2126,7 +2145,8 @@ def main() -> int:
          "max_abs_err": stats[k]["max_abs_err"], "ms": stats[k]["ms"],
          "plain_ms": stats[k]["plain_ms"], "bound_ms": bounds[k][0],
          "bound_by": bounds[k][1],
-         "library_ms": stats[k].get("library_ms")}
+         "library_ms": stats[k].get("library_ms"),
+         **({"H": stats[k]["H"]} if "H" in stats[k] else {})}
         for k, (src, rep) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,6 +4,11 @@
 // formulas with no branch on the identity (0 : 1 : 0), plus identity,
 // select and negation. The same formulas as the plain torch versions
 // (ops/curve.py), so projective outputs agree bit for bit.
+//
+// pt_add and pt_add_mixed are templates on the constants' type K, which
+// picks the field backend by overload: Consts is field.cuh's C++, the
+// backend of every kernel but two; LeanConsts (field_lean.cuh) the PTX
+// carry chains that msm_chain and h_tables run.
 #pragma once
 
 #include "field.cuh"
@@ -24,8 +29,15 @@ HP_HD void pt_identity(const Consts& c, Proj& r) {
   fe_zero(r.z);
 }
 
+// out = 3b x, the curve constant's product (field_lean.cuh has the lean
+// backend's).
+HP_HD void mul_b3(const Consts& c, const u32* x, u32* out) {
+  mont_mul(c, c.b3, x, out);
+}
+
 // r = p + q (Algorithm 7). r may alias p or q.
-HP_HD void pt_add(const Consts& c, const Proj& p, const Proj& q, Proj& r) {
+template <class K>
+HP_HD void pt_add(const K& c, const Proj& p, const Proj& q, Proj& r) {
   u32 t0[NW], t1[NW], t2[NW], t3[NW], t4[NW], u[NW], v[NW];
   u32 X3[NW], Y3[NW], Z3[NW];
   mont_mul(c, p.x, q.x, t0);
@@ -48,10 +60,10 @@ HP_HD void pt_add(const Consts& c, const Proj& p, const Proj& q, Proj& r) {
   fe_sub(c, Y3, u, Y3);
   fe_add(c, t0, t0, X3);
   fe_add(c, X3, t0, t0);
-  mont_mul(c, c.b3, t2, t2);
+  mul_b3(c, t2, t2);
   fe_add(c, t1, t2, Z3);
   fe_sub(c, t1, t2, t1);
-  mont_mul(c, c.b3, Y3, Y3);
+  mul_b3(c, Y3, Y3);
   mont_mul(c, t4, Y3, X3);
   mont_mul(c, t3, t1, u);
   fe_sub(c, u, X3, X3);
@@ -67,8 +79,8 @@ HP_HD void pt_add(const Consts& c, const Proj& p, const Proj& q, Proj& r) {
 }
 
 // r = p + q for an affine q that is never the identity (Algorithm 8).
-HP_HD void pt_add_mixed(const Consts& c, const Proj& p, const Aff& q,
-                        Proj& r) {
+template <class K>
+HP_HD void pt_add_mixed(const K& c, const Proj& p, const Aff& q, Proj& r) {
   u32 t0[NW], t1[NW], t2[NW], t3[NW], t4[NW], u[NW];
   u32 X3[NW], Y3[NW], Z3[NW];
   mont_mul(c, p.x, q.x, t0);
@@ -84,10 +96,10 @@ HP_HD void pt_add_mixed(const Consts& c, const Proj& p, const Aff& q,
   fe_add(c, Y3, p.x, Y3);
   fe_add(c, t0, t0, X3);
   fe_add(c, X3, t0, t0);
-  mont_mul(c, c.b3, p.z, t2);
+  mul_b3(c, p.z, t2);
   fe_add(c, t1, t2, Z3);
   fe_sub(c, t1, t2, t1);
-  mont_mul(c, c.b3, Y3, Y3);
+  mul_b3(c, Y3, Y3);
   mont_mul(c, t4, Y3, X3);
   mont_mul(c, t3, t1, u);
   fe_sub(c, u, X3, X3);

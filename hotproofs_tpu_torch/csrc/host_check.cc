@@ -29,6 +29,32 @@ static void split_walks(const u32* consts, const int* digits,
                             ol, dig.data(), list.data(), cnt.data(), 1);
 }
 
+// p, q, out: (n, 3, 8) projective; op 0 = add, 1 = mixed add (q's z
+// ignored), 2 = double (q ignored), 3 = negate (q ignored). K picks the
+// field backend of the adds (Consts or LeanConsts).
+template <class K>
+static void point_ops(const K& c, const u32* p, const u32* q, u32* out,
+                      int n, int op) {
+  for (int i = 0; i < n; ++i) {
+    Proj a, b, r;
+    load_proj(p + (size_t)i * 3 * NW, 1, a);
+    load_proj(q + (size_t)i * 3 * NW, 1, b);
+    if (op == 0) {
+      pt_add(c, a, b, r);
+    } else if (op == 1) {
+      Aff bq;
+      fe_copy(bq.x, b.x);
+      fe_copy(bq.y, b.y);
+      pt_add_mixed(c, a, bq, r);
+    } else if (op == 2) {
+      pt_double(c, a, r);
+    } else {
+      pt_neg(c, a, r);
+    }
+    store_proj(out + (size_t)i * 3 * NW, 1, r);
+  }
+}
+
 extern "C" {
 
 void hc_mont_mul(const u32* consts, const u32* a, const u32* b, u32* out,
@@ -48,29 +74,9 @@ void hc_sub(const u32* consts, const u32* a, const u32* b, u32* out, int n) {
   for (int i = 0; i < n; ++i) fe_sub(c, a + i * NW, b + i * NW, out + i * NW);
 }
 
-// p, q, out: (n, 3, 8) projective; op 0 = add, 1 = mixed add (q's z
-// ignored), 2 = double (q ignored), 3 = negate (q ignored).
 void hc_point_op(const u32* consts, const u32* p, const u32* q, u32* out,
                  int n, int op) {
-  Consts c = load_consts(consts);
-  for (int i = 0; i < n; ++i) {
-    Proj a, b, r;
-    load_proj(p + (size_t)i * 3 * NW, 1, a);
-    load_proj(q + (size_t)i * 3 * NW, 1, b);
-    if (op == 0) {
-      pt_add(c, a, b, r);
-    } else if (op == 1) {
-      Aff bq;
-      fe_copy(bq.x, b.x);
-      fe_copy(bq.y, b.y);
-      pt_add_mixed(c, a, bq, r);
-    } else if (op == 2) {
-      pt_double(c, a, r);
-    } else {
-      pt_neg(c, a, r);
-    }
-    store_proj(out + (size_t)i * 3 * NW, 1, r);
-  }
+  point_ops(load_consts(consts), p, q, out, n, op);
 }
 
 // msm.cuh's launch constants, in the order NBUCKET, BUCKET_LANES,
@@ -175,12 +181,20 @@ void hc_msm_wsum(const u32* consts, const u32* reduced, u32* out, int J,
   }
 }
 
-void hc_msm_chain(const u32* consts, const u32* bases, u32* out, int J, int B,
-                  int n_lanes) {
-  Consts c = load_consts(consts);
+// k_msm_chain lane by lane: its H sub-chains (chain_part), then their
+// halving tree (chain_join), on the lean backend's host branch.
+void hc_msm_chain(const u32* lean_consts, const u32* bases, u32* out, int J,
+                  int B, int n_lanes, int H) {
+  LeanConsts c = load_lean_consts(lean_consts);
+  std::vector<Proj> part(H);
+  const size_t L = (size_t)n_lanes;
   for (int j = 0; j < J; ++j)
-    for (int l = 0; l < n_lanes; ++l)
-      chain_lane(c, bases, out, B, n_lanes, j, l);
+    for (int l = 0; l < n_lanes; ++l) {
+      for (int h = 0; h < H; ++h)
+        chain_part(c, bases, B, n_lanes, H, l, h, part[h]);
+      chain_join(c, part.data(), H);
+      store_proj(out + (size_t)j * 3 * NW * L + l, L, part[0]);
+    }
 }
 
 void hc_msm_bucket_tsplit(const u32* consts, const int* digits,
@@ -294,29 +308,71 @@ void hc_scale16(const u32* consts, const u32* pts, u32* out, long long n,
 }
 
 // The matrix-table kernel (tables.cuh), one warp a row in `order`: each
-// lane's walk (table_lane), K3's lane schedule at G = 16 replayed as
-// hc_msm_wsum does, then lane 0 adds lane 16's half.
-void hc_h_tables(const u32* consts, const int* row_ptr, const int* order,
-                 const int* cols, const u32* mag, const int* neg,
-                 const u32* bases_lm, u32* out, int R, int B, int lpw) {
-  Consts c = load_consts(consts);
-  std::vector<Proj> lane(32), prev(32);
+// lane's walk (table_lane), the halving trees over each value's parts
+// level by level (every lane reading the level's inputs, as the shuffles
+// do), the gather of value v's sum to lane v - 1, then K3's lane schedule
+// at G = 16 replayed as hc_msm_wsum does.
+void hc_h_tables(const u32* lean_consts, const int* row_ptr,
+                 const int* order, const int* alloc, const int* cols,
+                 const u32* mag, const int* neg, const u32* bases_lm,
+                 u32* out, int R, int B, int lpw) {
+  LeanConsts c = load_lean_consts(lean_consts);
+  std::vector<Proj> lane(TABLE_LANES), prev(TABLE_LANES);
+  std::vector<TableLane> map(TABLE_LANES);
   for (int wi = 0; wi < R; ++wi) {
     const int row = order[wi];
-    for (int l = 0; l < 32; ++l)
-      table_lane(c, row_ptr, cols, mag, neg, bases_lm, B, lpw, row, l,
-                 lane[l]);
+    for (int l = 0; l < TABLE_LANES; ++l) {
+      map[l] = table_lane_map(alloc + (size_t)row * 4, l);
+      table_lane(c, row_ptr, alloc, cols, mag, neg, bases_lm, B, lpw, row,
+                 l, lane[l]);
+    }
+    for (int off = 1; off < map[0].amax; off <<= 1) {
+      prev = lane;
+      for (int l = 0; l < TABLE_LANES; ++l)
+        if (table_seg_takes(map[l], off)) acc_add(c, lane[l], prev[l + off]);
+    }
+    prev = lane;
+    for (int l = 0; l < TABLE_LANES; ++l) {
+      if (l < NBUCKET && map[l].head >= 0)
+        lane[l] = prev[map[l].head];
+      else
+        pt_identity(c, lane[l]);
+    }
     for (int off = 1; off < 16; off <<= 1) {
       prev = lane;
-      for (int l = 0; l < 32; ++l)
+      for (int l = 0; l < TABLE_LANES; ++l)
         if (l % 16 + off < 16) acc_add(c, lane[l], prev[l + off]);
     }
     for (int off = 8; off > 0; off >>= 1)
-      for (int l = 0; l < 32; ++l)
+      for (int l = 0; l < TABLE_LANES; ++l)
         if (l % 16 < off) acc_add(c, lane[l], lane[l + off]);
-    acc_add(c, lane[0], lane[16]);
     store_proj(out + (size_t)row * 3 * NW, 1, lane[0]);
   }
+}
+
+// The lean field backend's host branch (field_lean.cuh) on n elements:
+// op 0 mont_mul, 1 fe_add, 2 fe_sub, 3 mul_b3 (b ignored).
+void hc_lean_field(const u32* lean_consts, const u32* a, const u32* b,
+                   u32* out, int n, int op) {
+  LeanConsts c = load_lean_consts(lean_consts);
+  for (int i = 0; i < n; ++i) {
+    const u32 *x = a + i * NW, *y = b + i * NW;
+    u32* o = out + i * NW;
+    if (op == 0)
+      mont_mul(c, x, y, o);
+    else if (op == 1)
+      fe_add(c, x, y, o);
+    else if (op == 2)
+      fe_sub(c, x, y, o);
+    else
+      mul_b3(c, x, o);
+  }
+}
+
+// point_ops on the lean backend (ops 0 and 1 are its adds).
+void hc_lean_point_op(const u32* lean_consts, const u32* p, const u32* q,
+                      u32* out, int n, int op) {
+  point_ops(load_lean_consts(lean_consts), p, q, out, n, op);
 }
 
 }  // extern "C"

@@ -95,8 +95,10 @@ HP_HD int merge_group(int J, int S, int n_lanes) {
 
 // acc += q with the identity skipped on either side: a q whose Z is 0 adds
 // nothing, and an acc whose Z is 0 takes q as it is. The affine sum is
-// pt_add's; the projective representative may differ.
-HP_HD void acc_add(const Consts& c, Proj& acc, const Proj& q) {
+// pt_add's; the projective representative may differ. K picks the field
+// backend (curve.cuh).
+template <class K>
+HP_HD void acc_add(const K& c, Proj& acc, const Proj& q) {
   if (fe_is_zero(q.z)) return;
   if (fe_is_zero(acc.z)) {
     acc = q;
@@ -267,7 +269,8 @@ __device__ __forceinline__ void shfl_down_proj(const Proj& a, int off,
 // over log2 G shuffle levels, then a halving tree over log2 G more, leaves
 // sum_v v * B_v on lane 0 of the job. Every add with the identity on one
 // side is skipped. The host replay is hc_msm_wsum.
-__device__ __forceinline__ void wsum_lanes(const Consts& c, Proj& acc, int v,
+template <class K>
+__device__ __forceinline__ void wsum_lanes(const K& c, Proj& acc, int v,
                                            int G) {
 #pragma unroll 1
   for (int off = 1; off < G; off <<= 1) {  // T_v = B_v + ... + B_S

@@ -6,13 +6,20 @@
 //
 // msm_chain replaces pure_chain_call (tools/exp_bucket2.py:30) and pure_call
 //   (tools/profile_msm_phases.py:139): the bucket kernel's add chain with no
-//   bucket select, one thread per (job, lane) and one accumulator (96 B of
-//   state instead of 1,440). Its time beside msm_bucket's at the same thread
-//   count is what the buckets cost. Bound by integer multiply throughput
-//   like msm_bucket (13 Montgomery products per mixed add, B adds a lane,
-//   padding included), but every add is live. pure_call wrote the same sum
-//   into slot 0 of 16; here the J jobs all compute the same lane sums, so
-//   the ceiling can be read at msm_bucket's thread count at every shape.
+//   bucket select and one accumulator (96 B of state instead of 1,440).
+//   Its time beside msm_bucket's at the same thread count is what the
+//   buckets cost. Bound by integer multiply throughput like msm_bucket (11
+//   Montgomery products per mixed add, B adds a lane, padding included),
+//   but every add is live. pure_call wrote the same sum into slot 0 of 16;
+//   here the J jobs all compute the same lane sums, so the ceiling can be
+//   read at msm_bucket's thread count at every shape. Redesigned for the
+//   card: one thread a (job, lane) left comm_T J=1 at 16,192 threads, four
+//   warps an SM, each waiting on its chain of dependent adds; now each lane
+//   is H sub-chains of B/H adds on H adjacent threads, joined by log2 H
+//   levels of warp shuffles and complete adds (msm_designs.cuh:
+//   chain_part, chain_join); H = 1 is msm_bucket's thread map. The adds
+//   run on the lean field backend (field_lean.cuh: PTX carry chains,
+//   branch-free reductions, 3b by additions).
 // msm_bucket_tsplit replaces bucket_tsplit_call (tools/exp_tsplit.py:37).
 //   Thread (j, h, l) accumulates steps [h B/H, (h+1) B/H) of lane l into its
 //   own 15 buckets: H x the threads of msm_bucket, each with a chain H x
@@ -49,13 +56,33 @@
 
 using namespace hp;
 
-__global__ void k_msm_chain(Consts c, const u32* __restrict__ bases,
-                            u32* __restrict__ out, int J, int B,
-                            int n_lanes) {
-  long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (gid >= (long long)J * n_lanes) return;
-  chain_lane(c, bases, out, B, n_lanes, (int)(gid / n_lanes),
-             (int)(gid % n_lanes));
+// Thread gid = (j n_lanes + l) H + h is sub-chain h of lane l of job j:
+// a lane's H threads are adjacent in one warp (H divides 32), so its
+// halving tree (chain_join) runs as log2 H levels of shuffles, each lane
+// of the warp taking part (threads past the end chain nothing and hold
+// the identity). Lean field backend (field_lean.cuh).
+__global__ void __launch_bounds__(CHAIN_THREADS)
+    k_msm_chain(LeanConsts c, const u32* __restrict__ bases,
+                u32* __restrict__ out, int J, int B, int n_lanes, int H) {
+  const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long lane = gid / H;
+  const int h = (int)(gid % H);
+  const bool live = lane < (long long)J * n_lanes;
+  const int l = (int)(lane % n_lanes);
+  Proj acc;
+  if (live)
+    chain_part(c, bases, B, n_lanes, H, l, h, acc);
+  else
+    pt_identity(c, acc);
+#pragma unroll 1
+  for (int off = H / 2; off > 0; off >>= 1) {
+    Proj o;
+    shfl_down_proj(acc, off, o);
+    if (h < off) acc_add(c, acc, o);
+  }
+  const size_t L = (size_t)n_lanes;
+  if (live && h == 0)
+    store_proj(out + (size_t)(lane / n_lanes) * 3 * NW * L + l, L, acc);
 }
 
 // Block (x, j): launch indices ol = x * BUCKET_LANES + t of job j, each
@@ -97,12 +124,15 @@ static int launch_split_walk(const u32* consts, const int* digits,
 
 extern "C" {
 
-int hp_msm_chain(const u32* consts, const u32* bases, u32* out, int J, int B,
-                 int n_lanes, void* stream) {
-  const int threads = 128;
-  k_msm_chain<<<blocks_for((long long)J * n_lanes, threads), threads, 0,
-                (cudaStream_t)stream>>>(load_consts(consts), bases, out, J,
-                                        B, n_lanes);
+// lean_consts: the 34 words of load_lean_consts; H a power of two that
+// divides 32 and B.
+int hp_msm_chain(const u32* lean_consts, const u32* bases, u32* out, int J,
+                 int B, int n_lanes, int H, void* stream) {
+  if (H < 1 || H > 32 || (H & (H - 1)) || B % H)
+    return (int)cudaErrorInvalidValue;
+  k_msm_chain<<<blocks_for((long long)J * n_lanes * H, CHAIN_THREADS),
+                CHAIN_THREADS, 0, (cudaStream_t)stream>>>(
+      load_lean_consts(lean_consts), bases, out, J, B, n_lanes, H);
   return (int)cudaGetLastError();
 }
 

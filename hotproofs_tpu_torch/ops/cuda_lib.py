@@ -25,7 +25,7 @@ from ..utils.config import CONFIG
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
-SOURCES = ("field.cuh", "curve.cuh", "msm.cuh", "msm.cu", "msm_designs.cuh",
+SOURCES = ("field.cuh", "field_lean.cuh", "curve.cuh", "msm.cuh", "msm.cu", "msm_designs.cuh",
            "msm_designs.cu", "mont.cuh", "mont.cu", "conv_mma.cu",
            "points.cuh", "points.cu", "tables.cuh", "tables.cu")
 UNITS = tuple(s for s in SOURCES if s.endswith(".cu"))
@@ -101,7 +101,7 @@ def lib() -> ctypes.CDLL:
                 "hp_msm_merge": [P, P, P, P, P, I, I, I, P],
                 "hp_msm_wsum": [P, P, P, I, I, P],
                 "hp_to_affine": [P, P, P, P, P, P, LL, P],
-                "hp_msm_chain": [P, P, P, I, I, I, P],
+                "hp_msm_chain": [P, P, P, I, I, I, I, P],
                 "hp_msm_bucket_tsplit": [P, P, P, P, I, I, I, I, P],
                 "hp_msm_bucket_signed": [P, P, P, P, I, I, I, P],
                 "hp_mont_mul": [P, P, LL, P, LL, P, LL, I, P],
@@ -109,7 +109,7 @@ def lib() -> ctypes.CDLL:
                 "hp_mont_mul_part": [P, P, P, P, LL, I, P],
                 "hp_conv_mma": [P, P, P, LL, P],
                 "hp_scale16": [P, P, P, LL, I, P],
-                "hp_h_tables": [P, P, P, P, P, P, P, P, I, I, I, P],
+                "hp_h_tables": [P, P, P, P, P, P, P, P, P, I, I, I, P],
             }.items():
                 fn = getattr(handle, name)
                 fn.argtypes = args

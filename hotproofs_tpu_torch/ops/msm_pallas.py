@@ -24,7 +24,8 @@ The bucket-design path (tools/msm_designs.py) adds three alternatives to
 K1, each followed by K2 and K3 over its own slot count S:
 
   msm_chain          (replaces pure_chain_call, tools/exp_bucket2.py:30, and
-                      pure_call, tools/profile_msm_phases.py:139)
+                      pure_call, tools/profile_msm_phases.py:139; each lane
+                      H sub-chains on H threads, joined by a shuffle tree)
   msm_bucket_tsplit  (replaces bucket_tsplit_call, tools/exp_tsplit.py:37)
   msm_bucket_signed  (replaces bucket_signed_call,
                       tools/exp_signed_msm.py:65)
@@ -114,6 +115,12 @@ WSUM_MAX_SLOTS = 32         # K3: a job's slots fit one warp
 AFFINE_THREADS = 256        # K4: threads per block, points per thread and
 AFFINE_PER_THREAD = 16      # points per block (one Fermat chain each)
 AFFINE_BLOCK = AFFINE_THREADS * AFFINE_PER_THREAD
+# msm_chain: the threads that chain_split fills the card with, 8 warps an
+# SM of an H100's 132, where the lean add's SM cycles a warp-step stop
+# falling (3,715 at 8 warps, 3,671 at 16, 3,643 at 32; tools/add_cost.py
+# on an H100), and the most sub-chains a lane.
+CHAIN_TARGET_THREADS = 132 * 256
+CHAIN_MAX_SPLIT = 32        # a lane's sub-chains stay in one warp
 
 # ---------------------------------------------------------------------------
 # Plan, digits and base layout.
@@ -199,7 +206,7 @@ def lane_major(bases: torch.Tensor) -> torch.Tensor:
     return bases.permute(3, 0, 1, 2).contiguous()
 
 
-_CONSTS: Dict[str, ctypes.Array] = {}
+_CONSTS: Dict[Tuple[str, bool], ctypes.Array] = {}
 
 
 def consts_words(spec: C.CurveSpec) -> np.ndarray:
@@ -212,11 +219,27 @@ def consts_words(spec: C.CurveSpec) -> np.ndarray:
                       + [(-pow(f.p, -1, 1 << 32)) % (1 << 32)], np.uint32)
 
 
-def _consts_arg(spec: C.CurveSpec) -> ctypes.Array:
-    if spec.name not in _CONSTS:
-        w = consts_words(spec)
-        _CONSTS[spec.name] = (ctypes.c_uint32 * len(w))(*w.tolist())
-    return _CONSTS[spec.name]
+def _consts_arg(spec: C.CurveSpec, lean: bool = False) -> ctypes.Array:
+    key = (spec.name, lean)
+    if key not in _CONSTS:
+        w = lean_consts_words(spec) if lean else consts_words(spec)
+        _CONSTS[key] = (ctypes.c_uint32 * len(w))(*w.tolist())
+    return _CONSTS[key]
+
+
+def b3_small(spec: C.CurveSpec) -> int:
+    """3b as a signed integer of least magnitude: 15 on Pallas and Vesta,
+    9 on BN254, -51 on Grumpkin (its b is -17)."""
+    k = 3 * spec.b % spec.base.p
+    return k - spec.base.p if k > spec.base.p // 2 else k
+
+
+def lean_consts_words(spec: C.CurveSpec) -> np.ndarray:
+    """The csrc `LeanConsts` pack (field_lean.cuh): consts_words, then 3b
+    as a small signed integer (two's complement), which the lean field
+    backend multiplies by with modular additions."""
+    return np.concatenate([consts_words(spec), np.asarray(
+        [b3_small(spec) % (1 << 32)], np.uint32)])
 
 
 def _proj_words(pt) -> torch.Tensor:
@@ -643,34 +666,70 @@ def scaled_affine_host(spec: C.CurveSpec, gens: list, w4: int):
 # ---------------------------------------------------------------------------
 
 
-def msm_chain_plain(spec: C.CurveSpec, bases: torch.Tensor,
-                    J: int) -> torch.Tensor:
-    """Plain torch version of msm_chain: every lane mixed-adds its B bases
-    in order into one accumulator. No digit is read, so the J jobs hold
+def chain_split(J: int, n_lanes: int, B: int) -> int:
+    """msm_chain's H for J jobs of n_lanes lanes of B steps: the largest
+    power of two up to CHAIN_MAX_SPLIT that divides B and keeps J *
+    n_lanes * H threads within CHAIN_TARGET_THREADS; 1 where one thread a
+    lane fills that already."""
+    H = 1
+    while (2 * H <= CHAIN_MAX_SPLIT and B % (2 * H) == 0
+           and J * n_lanes * 2 * H <= CHAIN_TARGET_THREADS):
+        H *= 2
+    return H
+
+
+def _chain_h(name: str, J: int, n_lanes: int, B: int,
+             H: Optional[int]) -> int:
+    H = chain_split(J, n_lanes, B) if H is None else H
+    if H < 1 or H > CHAIN_MAX_SPLIT or H & (H - 1) or B % H:
+        raise ValueError(f"{name}: H = {H} must be a power of two up to "
+                         f"{CHAIN_MAX_SPLIT} that divides B = {B}")
+    return H
+
+
+def msm_chain_plain(spec: C.CurveSpec, bases: torch.Tensor, J: int,
+                    H: Optional[int] = None) -> torch.Tensor:
+    """Plain torch version of msm_chain, in the kernel's order: sub-chain h
+    of lane l mixed-adds its B / H bases in order from the identity, all
+    (h, l) a step at once; then the halving tree, h < off taking h + off
+    (acc_add) for off = H/2, ..., 1. No digit is read, so the J jobs hold
     the same lane sums: computed once and repeated."""
     B, _, _, L = bases.shape
-    bx = F.words_to_h16(bases[:, 0].transpose(1, 2))       # (B, L, 16)
-    by = F.words_to_h16(bases[:, 1].transpose(1, 2))
-    acc = C.h_identity(spec, (L,), bases.device)
-    for t in range(B):
+    H = _chain_h("msm_chain", J, L, B, H)
+    steps = B // H
+    part = lambda c: F.words_to_h16(c.transpose(1, 2)).reshape(
+        H, steps, L, -1).transpose(0, 1).reshape(steps, H * L, -1)
+    bx, by = part(bases[:, 0]), part(bases[:, 1])      # (steps, H L, 16)
+    acc = C.h_identity(spec, (H * L,), bases.device)
+    for t in range(steps):
         acc = C.h_pt_add_mixed(spec, acc, (bx[t], by[t]))
-    out = _proj_words(acc).permute(1, 2, 0)                # (3, 8, L)
+    parts = [tuple(c[h * L:(h + 1) * L] for c in acc) for h in range(H)]
+    off = H // 2
+    while off:
+        for h in range(off):
+            parts[h] = _acc_add(spec, parts[h], parts[h + off])
+        off //= 2
+    out = _proj_words(parts[0]).permute(1, 2, 0)           # (3, 8, L)
     return out[None].expand(J, 3, NW, L).contiguous()
 
 
-def msm_chain(spec: C.CurveSpec, bases: torch.Tensor, J: int) -> torch.Tensor:
+def msm_chain(spec: C.CurveSpec, bases: torch.Tensor, J: int,
+              H: Optional[int] = None) -> torch.Tensor:
     """The bucket kernel's add chain without buckets: (B, 2, 8, n_lanes)
     bases -> (J, 3, 8, n_lanes), lane l of every job = the sum of its B
-    bases (padding points included). Wrong as an MSM by design: a ceiling
-    for msm_bucket at the same thread count."""
+    bases (padding points included), chained as H sub-chains of B / H
+    adds on H threads and joined (H = chain_split(J, n_lanes, B) if not
+    given; H = 1 is msm_bucket's thread map). Wrong as an MSM by design: a
+    ceiling for msm_bucket at the same thread count."""
     B, _, _, L = bases.shape
     _check_input("msm_chain bases", bases, (B, 2, NW, L))
+    H = _chain_h("msm_chain", J, L, B, H)
     if not _on_cuda("msm_chain", bases):
-        return msm_chain_plain(spec, bases, J)
+        return msm_chain_plain(spec, bases, J, H)
     out = torch.empty((J, 3, NW, L), dtype=torch.int32, device=bases.device)
     if J * L:
-        _launch("msm_chain", lib().hp_msm_chain, _consts_arg(spec),
-                _ptr(bases), _ptr(out), J, B, L, device=bases.device)
+        _launch("msm_chain", lib().hp_msm_chain, _consts_arg(spec, True),
+                _ptr(bases), _ptr(out), J, B, L, H, device=bases.device)
     return out
 
 

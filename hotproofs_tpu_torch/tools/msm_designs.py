@@ -29,6 +29,7 @@ walks its own nonzero digits), then times:
     with no buckets and no digits, a ceiling; its MSM is wrong by design
     and is held against its plain version instead), the t-split with H = 2
     and H = 4, and the signed digits (8 buckets, recode signed_digits_tm);
+    the chain runs at ops/msm_pallas.py: chain_split's H for the shape;
   * every design's MSM equal to msm_many's as affine points;
 
 then the host per-fold costs (a transcript absorb sequence and
@@ -296,6 +297,8 @@ def measure(inp: Inputs, reps: int) -> Dict[str, object]:
             "check": "== plain" if name == "chain" else "== msm_many",
             "ok": bool(ok),
         }
+        if name == "chain":
+            out["designs"][name]["H"] = MP.chain_split(inp.J, n_lanes, b)
     return out
 
 
@@ -351,6 +354,8 @@ def report(tag: str, res: Dict[str, object]) -> list:
             f"B={b} {d['ms']:.3f} ms {'OK' if d['ok'] else 'FAILED'}"
             for b, d in res["plan_b"].items()))
     for name, d in res["designs"].items():
+        if "H" in d:
+            name = f"{name} H={d['H']}"
         lines.append(f"{tag} {name}: kernel {d['kernel_ms']:.3f} ms, whole "
                      f"{d['ms']:.3f} ms, {d['check']} "
                      f"{'OK' if d['ok'] else 'FAILED'}")

@@ -22,6 +22,7 @@ from hotproofs_tpu_torch.ops import curve as C
 from hotproofs_tpu_torch.ops import field as F
 from hotproofs_tpu_torch.ops import msm_pallas as MP
 from hotproofs_tpu_torch.ops import pallas_field as PF
+from torch_table_edges import edge_tables
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "hotproofs_tpu_torch" \
     / "csrc"
@@ -267,8 +268,11 @@ def test_design_kernel_bodies_vs_plain(hc, m, bits):
     cw = MP.consts_words(spec)
 
     ch = MP.msm_chain_plain(spec, bases, 2)
-    assert np.array_equal(_host(hc, "hc_msm_chain", ch.shape, _p(cw),
-                                _p(bn), (2, b, n_lanes)), ch.numpy())
+    H = MP.chain_split(2, n_lanes, b)
+    assert H == b
+    assert np.array_equal(_host(hc, "hc_msm_chain", ch.shape,
+                                _p(MP.lean_consts_words(spec)), _p(bn),
+                                (2, b, n_lanes, H)), ch.numpy())
 
     lm = np.ascontiguousarray(MP.lane_major(bases).numpy())
     d = MP.digits_tm(sc, m, b, lpw, w4)
@@ -575,11 +579,11 @@ def test_scale16_body_vs_plain_and_host(hc, name):
 
 @pytest.mark.parametrize("name", ["pallas", "bn254"])
 def test_h_tables_body_vs_plain_and_host(hc, name):
-    """h_tables' per-lane walks, K3's lane schedule and the halves' add
-    under g++ == its plain version bit for bit, on seeded rows of random
-    full-width, small, negated and zero values over a 16-generator key
-    (rows of 0, 1, 2 and 61 nonzeros, an empty row last); the affine
-    tables == sum v G on the host."""
+    """h_tables' per-lane walks, the parts' trees, the gather and K3's
+    lane schedule under g++ == its plain version bit for bit, on seeded
+    rows of random full-width, small, negated and zero values over a
+    16-generator key (rows of 0, 1, 2 and 61 nonzeros, an empty row
+    last); the affine tables == sum v G on the host."""
     from hotproofs_tpu_torch.ops import tables as TB
     spec = C.CURVES[name]
     fs, n = spec.scalar, 16
@@ -604,10 +608,10 @@ def test_h_tables_body_vs_plain_and_host(hc, name):
                              mont)], R)
     out = np.zeros((R, 3, 8), np.uint32)
     u32 = lambda t: np.ascontiguousarray(t.numpy().view(np.uint32))
-    hc.hc_h_tables(_p(MP.consts_words(spec)), _p(csr.row_ptr.numpy()),
-                   _p(csr.order.numpy()), _p(csr.cols.numpy()),
-                   _p(u32(csr.mag)), _p(csr.neg.numpy()), _p(u32(bl)),
-                   _p(out), R, b, lpw)
+    hc.hc_h_tables(_p(MP.lean_consts_words(spec)), _p(csr.row_ptr.numpy()),
+                   _p(csr.order.numpy()), _p(csr.alloc.numpy()),
+                   _p(csr.cols.numpy()), _p(u32(csr.mag)),
+                   _p(csr.neg.numpy()), _p(u32(bl)), _p(out), R, b, lpw)
     plain = TB.h_tables_plain(spec, csr, bl, lpw)
     assert np.array_equal(out.view(np.int32), plain.numpy())
     got = C.pt_to_affine_host(spec, MP.words_point(plain))
@@ -616,3 +620,188 @@ def test_h_tables_body_vs_plain_and_host(hc, name):
         want[r] = C.host_add(spec, want[r],
                              C.host_scalar_mul(spec, v, gens[c]))
     assert got == want and want[0] is None and want[-1] is None
+
+
+@pytest.mark.parametrize("name", ["pallas", "vesta", "bn254", "grumpkin"])
+def test_lean_field_ops_vs_ints(hc, name):
+    """The lean backend's host branch (field_lean.cuh): mont_mul, fe_add,
+    fe_sub and the product by 3b through its small signed constant (15,
+    15, 9, -51) == the integers, edge values included."""
+    spec = C.CURVES[name]
+    f = spec.base
+    rng = np.random.default_rng(len(name) + 7)
+    xs = [int.from_bytes(rng.bytes(32), "little") % f.p for _ in range(64)]
+    ys = [int.from_bytes(rng.bytes(32), "little") % f.p for _ in range(64)]
+    xs[:4], ys[:4] = [0, f.p - 1, f.p - 1, 1], [f.p - 1, f.p - 1, 0, 0]
+    a = _words(torch.from_numpy(f.batch_to_limbs(xs)))
+    b = _words(torch.from_numpy(f.batch_to_limbs(ys)))
+    lw = MP.lean_consts_words(spec)
+    assert lw[-1].view(np.int32) == MP.b3_small(spec)
+    rinv = pow(1 << 256, -1, f.p)
+    k = 3 * spec.b % f.p
+    for op, want in enumerate(([x * y * rinv for x, y in zip(xs, ys)],
+                               [x + y for x, y in zip(xs, ys)],
+                               [x - y for x, y in zip(xs, ys)],
+                               [k * x for x in xs])):
+        out = np.zeros_like(a)
+        hc.hc_lean_field(_p(lw), _p(a), _p(b), _p(out), len(xs), op)
+        assert F.to_ints(f, _digits(out)) == [w % f.p for w in want], op
+
+
+@pytest.mark.parametrize("name", ["pallas", "vesta", "bn254", "grumpkin"])
+def test_lean_point_ops_vs_plain(hc, name):
+    """pt_add and pt_add_mixed on the lean backend (the products by 3b as
+    additions) == the plain versions bit for bit, the identity and a
+    doubling included; == the host's sums as affine points."""
+    spec = C.CURVES[name]
+    rng = np.random.default_rng(11)
+    pts = _rand_points(spec, rng, 12)
+    qts = _rand_points(spec, rng, 12)
+    pts[0] = None
+    pts[1] = qts[1]
+    pts[2] = (qts[2][0], (-qts[2][1]) % spec.base.p)
+    P, Q = C.affine_to_mont(spec, pts), C.affine_to_mont(spec, qts)
+    lw = MP.lean_consts_words(spec)
+    pw, qw = _proj_words(P), _proj_words(Q)
+    for op, want in ((0, C.pt_add(spec, P, Q)),
+                     (1, C.pt_add_mixed(spec, P, (Q[0], Q[1])))):
+        out = np.zeros_like(pw)
+        hc.hc_lean_point_op(_p(lw), _p(pw), _p(qw), _p(out), len(pts), op)
+        got = tuple(_digits(out[:, c]) for c in range(3))
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), op
+        assert C.pt_to_affine_host(spec, got) == [
+            C.host_add(spec, p, q) for p, q in zip(pts, qts)]
+
+
+@pytest.mark.parametrize("H", [1, 2, 4, 32])
+def test_chain_body_vs_plain_at_every_split(hc, H):
+    """msm_chain's sub-chains and shuffle tree (chain_part, chain_join)
+    under g++ == msm_chain_plain bit for bit at H = 1, 2, 4 and 32 (the
+    widest tree in one warp) over B = 64 steps; every H gives the same
+    affine lane sums; a B that H does not divide, an H that is no power of
+    two or too wide, are refused by the wrapper."""
+    spec = C.PALLAS
+    L, B = 24, 64
+    pts, p = [], None
+    for _ in range(B * L):                  # G, 2G, 3G, ...: curve points
+        p = C.host_add(spec, p, spec.gen)
+        pts.append(p)
+    X, Y, _ = C.affine_to_mont(spec, pts)
+    bases = torch.stack([F.digits_to_words(X), F.digits_to_words(Y)],
+                        dim=1).reshape(B, L, 2, 8).permute(0, 2, 3, 1) \
+        .contiguous()                       # (B, 2, 8, L)
+    bn = np.ascontiguousarray(bases.numpy().view(np.uint32))
+    ch = MP.msm_chain_plain(spec, bases, 2, H)
+    got = _host(hc, "hc_msm_chain", ch.shape, _p(MP.lean_consts_words(spec)),
+                _p(bn), (2, B, L, H))
+    assert np.array_equal(got, ch.numpy())
+    assert torch.equal(ch, MP.msm_chain(spec, bases, 2, H))
+    lanes = lambda c: C.pt_to_affine_host(spec, MP.words_point(
+        c[0].permute(2, 0, 1).contiguous()))
+    assert lanes(ch) == lanes(MP.msm_chain_plain(spec, bases, 1, 1))
+    for bad in (3, 64):
+        with pytest.raises(ValueError):
+            MP.msm_chain(spec, bases, 1, bad)
+    with pytest.raises(ValueError):
+        MP.msm_chain(spec, bases[:48], 1, 32)
+
+
+@pytest.mark.parametrize("name", ["pallas", "grumpkin"])
+def test_h_tables_lane_map_edges(hc, name):
+    """h_tables' balanced lane map under g++ == its plain version bit for
+    bit, and == sum v G on the host, on the edge rows of _edge_tables:
+    empty rows, one digit, 259 full-width negated values, all lanes on one
+    digit value; Grumpkin's 3b = -51 through the lean backend."""
+    from hotproofs_tpu_torch.ops import tables as TB
+    spec = C.CURVES[name]
+    n = 16
+    rng = np.random.default_rng(5)
+    gens = _rand_points(spec, rng, n)
+    b, lpw, w4, _ = MP.plan(n, 256)
+    xa, ya = MP.scaled_affine_host(spec, gens, w4)
+    bl = MP.lane_major(MP.bases_tm(torch.from_numpy(xa),
+                                   torch.from_numpy(ya), n, 256))
+    csr, rows, cols, vals = edge_tables(spec, n, rng)
+    R = csr.rows
+    out = np.zeros((R, 3, 8), np.uint32)
+    u32 = lambda t: np.ascontiguousarray(t.numpy().view(np.uint32))
+    hc.hc_h_tables(_p(MP.lean_consts_words(spec)), _p(csr.row_ptr.numpy()),
+                   _p(csr.order.numpy()), _p(csr.alloc.numpy()),
+                   _p(csr.cols.numpy()), _p(u32(csr.mag)),
+                   _p(csr.neg.numpy()), _p(u32(bl)), _p(out), R, b, lpw)
+    plain = TB.h_tables_plain(spec, csr, bl, lpw)
+    assert np.array_equal(out.view(np.int32), plain.numpy())
+    got = C.pt_to_affine_host(spec, MP.words_point(plain))
+    want = [None] * R
+    for r, c, v in zip(rows, cols, vals):
+        want[r] = C.host_add(spec, want[r],
+                             C.host_scalar_mul(spec, v, gens[c]))
+    assert got == want
+    assert got[0] is None and got[3] is None and got[14] is None
+    assert bool(csr.neg[csr.row_ptr[4]:csr.row_ptr[5]].all())
+
+
+def test_table_steps_and_alloc_vs_direct_count():
+    """ops/tables: lane_alloc gives each present value 1..n_v lanes, 32 at
+    most a row, and never leaves a lane spare while a value has more than
+    one add a lane; table_steps' walk and join warp-steps == a direct
+    count over the lanes of every row (table_lane_map's map, each lane's
+    matches counted digit by digit, each join level's adds of two points
+    that are not the identity)."""
+    from hotproofs_tpu_torch.ops import tables as TB
+    spec = C.PALLAS
+    csr, _, _, _ = edge_tables(spec, 16, np.random.default_rng(6))
+    n = TB.value_counts(csr.row_ptr, csr.mag)
+    _, _, _, a, _ = TB.lane_map(csr.alloc)
+    assert bool(((a > 0) == (n > 0)).all()) and bool((a <= n).all())
+    assert bool((a.sum(dim=1) <= 32).all())
+    short = a.sum(dim=1) < 32
+    assert bool((TB.row_walk(n, a)[short] <= 1).all())
+    assert int(a[4].sum()) == 32 and int(a[5, 0]) == 32
+    digits = TB._digits(csr.mag)
+    walk = join = 0
+    for r in range(csr.rows):
+        k0, k1 = int(csr.row_ptr[r]), int(csr.row_ptr[r + 1])
+        seq = [int(d) for k in range(k0, k1) for d in digits[k] if d]
+        al = [int(x) for x in csr.alloc[r]]
+        ab = [(al[v // 4] >> (8 * (v % 4))) & 0xFF for v in range(15)]
+        lanes = []
+        for lane in range(32):
+            s, got = 0, None
+            for v in range(1, 16):
+                if s <= lane < s + ab[v - 1]:
+                    got = (v, lane - s, ab[v - 1])
+                s += ab[v - 1]
+            lanes.append(got)
+        count = [0] * 32
+        for lane, m in enumerate(lanes):
+            if m:
+                v, part, parts = m
+                count[lane] = sum(1 for i, d in enumerate(
+                    [d for d in seq if d == v]) if i % parts == part)
+        walk += max(count)
+        live = [c > 0 for c in count]
+        off = 1
+        while off < max(ab):
+            take = [m is not None and m[1] % (2 * off) == 0
+                    and m[1] + off < m[2] for m in lanes]
+            join += any(take[l] and live[l] and live[l + off]
+                        for l in range(32))
+            off *= 2
+        sl = [any(d == v for d in seq) for v in range(1, 16)] + [False]
+        off = 1
+        while off < 16:
+            prev = list(sl)
+            join += any(prev[v] and v + off < 16 and prev[v + off]
+                        for v in range(16))
+            sl = [prev[v] or (v + off < 16 and prev[v + off])
+                  for v in range(16)]
+            off *= 2
+        off = 8
+        while off:
+            join += any(sl[v] and sl[v + off] for v in range(off))
+            sl = [sl[v] or sl[v + off] if v < off else sl[v]
+                  for v in range(16)]
+            off //= 2
+    assert TB.table_steps(csr) == (walk, join)

@@ -18,6 +18,7 @@ from hotproofs_tpu_torch.ops import msm_pallas as MP
 from hotproofs_tpu_torch.ops import pallas_field as PF
 from hotproofs_tpu_torch.tools import field_mul as FM
 from hotproofs_tpu_torch.tools import wsum_affine as WA
+from torch_table_edges import edge_tables
 
 # pytest-xdist runs several workers on one host: one intra-op thread
 # each keeps them from oversubscribing the cores.
@@ -308,3 +309,44 @@ def test_field_multiply_wrappers_reject_bad_inputs(dev):
             fn(lm.to(torch.int64), lm)
     with pytest.raises(ValueError):
         PF.mont_mul_words(spec, em, em)
+
+
+@pytest.mark.parametrize("H", [1, 2, 4, 32])
+def test_msm_chain_kernel_at_every_split(dev, H):
+    """msm_chain with H sub-chains a lane (the lean add and the shuffle
+    tree) == its plain version bit for bit at B = 64, over lanes that
+    leave a warp part-filled; chain_split's own H too; a B that H does
+    not divide is refused."""
+    rng = np.random.default_rng(H)
+    L, B = 45, 64
+    w = rng.integers(0, 1 << 32, size=(B, 2, 8, L), dtype=np.uint64)
+    w[:, :, 7] &= 0x3FFFFFFF
+    bases = torch.from_numpy(w.astype(np.uint32).view(np.int32)).to(dev)
+    for h in (H, None):
+        got = MP.msm_chain(SPEC, bases, 2, h)
+        assert torch.equal(got, MP.msm_chain_plain(SPEC, bases, 2, h))
+    with pytest.raises(ValueError):
+        MP.msm_chain(SPEC, bases[:48], 1, 32)
+
+
+@pytest.mark.parametrize("name", ["pallas", "bn254", "grumpkin"])
+def test_h_tables_kernel_on_edge_rows(dev, name):
+    """h_tables on the card == its plain version bit for bit on the edge
+    rows of tests/torch_table_edges.py (empty rows, one digit, 259
+    full-width negated values, every lane on one digit value), on Pasta,
+    BN254 and Grumpkin (3b = 15, 9, -51 through the lean backend)."""
+    from hotproofs_tpu_torch.ops import tables as TB
+    spec = C.CURVES[name]
+    rng = np.random.default_rng(5)
+    n = 16
+    b, lpw, _, n_lanes = MP.plan(n, 256)
+    w = rng.integers(0, 1 << 32, size=(n_lanes, b, 2, 8), dtype=np.uint64)
+    w[..., 7] &= 0x0FFFFFFF                 # canonical in all four fields
+    bl = torch.from_numpy(w.astype(np.uint32).view(np.int32)).to(dev)
+    csr, _, _, _ = edge_tables(spec, n, rng)
+    csr = TB.TableCSR(**{k: getattr(csr, k).to(dev) for k in (
+        "row_ptr", "order", "alloc", "cols", "mag", "neg")})
+    before = MP.launches["h_tables"]
+    got = TB.h_tables(spec, csr, bl, lpw)
+    assert MP.launches["h_tables"] == before + 1
+    assert torch.equal(got, TB.h_tables_plain(spec, csr, bl, lpw))

@@ -80,9 +80,13 @@ def test_the_rows_hold_full_width_negated_and_longest_values(sub):
         got = F.limbs_to_int(mag[i])
         assert got <= fs.p // 2
         assert (fs.p - got if csr.neg[i] else got) == want
-    # The rows run longest first; each row's nonzeros stay in CSR order.
-    n = (csr.row_ptr[1:] - csr.row_ptr[:-1]).numpy()
-    assert list(n[csr.order.numpy()]) == sorted(n, reverse=True)
+    # The rows run longest walk first (the most adds of any lane of the
+    # row's warp under its lane map); each row's nonzeros stay in CSR order.
+    n = TB.value_counts(csr.row_ptr, csr.mag)
+    _, _, _, a, _ = TB.lane_map(csr.alloc)
+    walk = TB.row_walk(n, a).numpy()
+    assert list(walk[csr.order.numpy()]) == sorted(walk, reverse=True)
+    assert walk.max() < max(lens)
 
 
 def test_plain_tables_equal_the_host_loop(sub):
