@@ -81,7 +81,8 @@ exit and no result line:
      after setup, compress and verify must launch no scale16 and no
      to_affine, and msm_bucket once per IPA round and once for the
      commitment to L), scale16 against its plain version on the inputs
-     setup gave it, timed beside its bound, and each round of the first
+     setup gave it (and a slice of its affine windows against the host's
+     16^w P), timed beside its bound, and each round of the first
      IPA (its J = 2 commit over the key's prepared bases beside the MSM's
      bound, and its two mont_mul) timed on the scalars the compress gave
      it, with the card's name and power limit beside every time;
@@ -203,6 +204,9 @@ TABLE_SLICE = 16
 # each (to_affine's blocks and scale16's threads are independent, so a
 # slice gives the kernel's values on those points).
 AFFINE_CHECK, SCALE_CHECK = 1 << 16, 1 << 12
+# Phase 9's check of scale16's affine windows against the host's ints: the
+# first points of each call that are not the identity.
+SCALE_HOST = 32
 
 # The bound of a kernel's call: the larger of its bytes (each input read
 # once, each output written once) over the HBM rate and its 32-bit integer
@@ -731,6 +735,8 @@ def compression_phase(prover, data, ci, proof, root, dev, note, stats,
     from hotproofs_tpu_torch.models import chunk_prover as CP
     from hotproofs_tpu_torch.nova import spartan as SP
     from hotproofs_tpu_torch.nova.ivc import IVCProof
+    from hotproofs_tpu_torch.ops import curve as C
+    from hotproofs_tpu_torch.ops import field as F
     from hotproofs_tpu_torch.ops import msm_pallas as MP
     from hotproofs_tpu_torch.utils import telemetry as T_
     from hotproofs_tpu_torch.utils.config import CONFIG
@@ -956,6 +962,20 @@ def compression_phase(prover, data, ci, proof, root, dev, note, stats,
         cut = min(got.shape[0] * n, 1 << 16)     # plain inversions: a slice
         note("scale16", affine(got.reshape(-1, 3, 8)[:cut]),
              affine(want.reshape(-1, 3, 8)[:cut]))
+        # The first SCALE_HOST points that are not the identity, at every
+        # window, against 16^w P on the host's ints (scaled_affine_host).
+        idx = [i for i in range(min(n, 8 * SCALE_HOST))
+               if bool(pts[i, 2].any())][:SCALE_HOST]
+        require(len(idx) == SCALE_HOST, f"scale16: under {SCALE_HOST} "
+                f"points not the identity among the first of {what}")
+        host_pts = C.pt_to_affine_host(sspec, MP.words_point(pts[idx]))
+        hx, hy = MP.scaled_affine_host(sspec, host_pts, windows)
+        kx, ky = affine(got[:, idx].reshape(-1, 3, 8))
+        require(np.array_equal(F.words_to_digits(kx).cpu().numpy(),
+                               hx.reshape(-1, 32))
+                and np.array_equal(F.words_to_digits(ky).cpu().numpy(),
+                                   hy.reshape(-1, 32)),
+                f"scale16: affine windows != 16^w P on the host ({what})")
         ms = cuda_ms(lambda: MP.scale16(sspec, pts, windows), 5)
         # The identity (Z = 0) needs no work: only the other points count.
         live = int((pts[:, 2] != 0).any(-1).sum())
@@ -963,6 +983,8 @@ def compression_phase(prover, data, ci, proof, root, dev, note, stats,
         bnd = bound(live * steps * (4 * MONT_DOUBLE + MONT_TO_HOMOGENEOUS),
                     nbytes(pts, got), rate)
         say(tag, f"scale16 == plain (projective and affine) on {what}, "
+            f"affine == the host's 16^w P at {SCALE_HOST} points x "
+            f"{windows} windows, "
             f"{n} points ({live} not the identity) at W4 = {windows}: "
             f"{ms:.3f} ms (plain {plain_ms:.1f} ms, bound {bnd[0]:.4f} ms "
             f"by {bnd[1]}: {4 * steps} Jacobian doublings and {steps} "

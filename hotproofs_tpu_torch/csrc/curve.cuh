@@ -1,8 +1,9 @@
 // Projective point arithmetic for y^2 = x^3 + b (a = 0) over field.cuh.
 // Port of hotproofs_tpu/ops/pallas_curve.py: Renes-Costello-Batina 2015
-// Algorithms 7 (pt_add), 8 (pt_add_mixed) and 9 (pt_double), complete
-// formulas with no branch on the identity (0 : 1 : 0), plus identity,
-// select and negation. The same formulas as the plain torch versions
+// Algorithms 7 (pt_add) and 8 (pt_add_mixed), complete formulas with no
+// branch on the identity (0 : 1 : 0), plus identity, select and negation.
+// (The only doubling kernel, scale16, doubles in Jacobian coordinates:
+// points.cuh.) The same formulas as the plain torch versions
 // (ops/curve.py), so projective outputs agree bit for bit.
 //
 // pt_add and pt_add_mixed are templates on the constants' type K, which
@@ -109,32 +110,6 @@ HP_HD void pt_add_mixed(const K& c, const Proj& p, const Aff& q, Proj& r) {
   mont_mul(c, t0, t3, u);
   mont_mul(c, Z3, t4, Z3);
   fe_add(c, Z3, u, Z3);
-  fe_copy(r.x, X3);
-  fe_copy(r.y, Y3);
-  fe_copy(r.z, Z3);
-}
-
-// r = 2p (Algorithm 9). r may alias p.
-HP_HD void pt_double(const Consts& c, const Proj& p, Proj& r) {
-  u32 t0[NW], t1[NW], t2[NW], X3[NW], Y3[NW], Z3[NW];
-  mont_mul(c, p.y, p.y, t0);
-  fe_add(c, t0, t0, Z3);
-  fe_add(c, Z3, Z3, Z3);
-  fe_add(c, Z3, Z3, Z3);
-  mont_mul(c, p.y, p.z, t1);
-  mont_mul(c, p.z, p.z, t2);
-  mont_mul(c, c.b3, t2, t2);
-  mont_mul(c, t2, Z3, X3);
-  fe_add(c, t0, t2, Y3);
-  mont_mul(c, t1, Z3, Z3);
-  fe_add(c, t2, t2, t1);
-  fe_add(c, t1, t2, t2);
-  fe_sub(c, t0, t2, t0);
-  mont_mul(c, t0, Y3, Y3);
-  fe_add(c, X3, Y3, Y3);
-  mont_mul(c, p.x, p.y, t1);
-  mont_mul(c, t0, t1, X3);
-  fe_add(c, X3, X3, X3);
   fe_copy(r.x, X3);
   fe_copy(r.y, Y3);
   fe_copy(r.z, Z3);

@@ -7,6 +7,7 @@
 // Nothing on the prover's path loads this library.
 #include <vector>
 
+#include "conv_mma.cuh"
 #include "mont.cuh"
 #include "msm_designs.cuh"
 #include "points.cuh"
@@ -30,8 +31,8 @@ static void split_walks(const u32* consts, const int* digits,
 }
 
 // p, q, out: (n, 3, 8) projective; op 0 = add, 1 = mixed add (q's z
-// ignored), 2 = double (q ignored), 3 = negate (q ignored). K picks the
-// field backend of the adds (Consts or LeanConsts).
+// ignored), 2 = negate (q ignored). K picks the field backend of the adds
+// (Consts or LeanConsts).
 template <class K>
 static void point_ops(const K& c, const u32* p, const u32* q, u32* out,
                       int n, int op) {
@@ -46,8 +47,6 @@ static void point_ops(const K& c, const u32* p, const u32* q, u32* out,
       fe_copy(bq.x, b.x);
       fe_copy(bq.y, b.y);
       pt_add_mixed(c, a, bq, r);
-    } else if (op == 2) {
-      pt_double(c, a, r);
     } else {
       pt_neg(c, a, r);
     }
@@ -298,11 +297,90 @@ void hc_mont_mul_part(const u32* fconsts, const int* a, const int* b,
     part_elem(f, a, b, out, (size_t)n, (size_t)i, part);
 }
 
+// A host model of mma.sync.m16n8k32.row.col.s32.u8.u8.s32 over the 32
+// lanes' fragments (the PTX ISA's layout: A 16 x 32 row-major, B 32 x 8
+// col-major, C/D 16 x 8), with C = 0: the matrices the fragments spell
+// (A[mt] rows 16 mt .. 16 mt + 15 of a 32 x 32, B), their product, and
+// each lane's accumulator registers d[lane][mt][0..3].
+struct MmaModel {
+  unsigned char A[32][32], B[32][8];
+  int d[32][2][4];
+};
+
+static void model_mma(const u32 (&af)[32][2][4], const u32 (&bf)[32][2],
+                      MmaModel& m) {
+  for (int lane = 0; lane < 32; ++lane) {
+    const int g = lane >> 2, t = lane & 3;
+    for (int mt = 0; mt < 2; ++mt)
+      for (int r = 0; r < 4; ++r)
+        for (int i = 0; i < 4; ++i)
+          m.A[16 * mt + g + 8 * (r & 1)][4 * t + i + 16 * (r >> 1)] =
+              (unsigned char)(af[lane][mt][r] >> (8 * i));
+    for (int r = 0; r < 2; ++r)
+      for (int i = 0; i < 4; ++i)
+        m.B[4 * t + i + 16 * r][g] = (unsigned char)(bf[lane][r] >> (8 * i));
+  }
+  for (int lane = 0; lane < 32; ++lane) {
+    const int g = lane >> 2, t = lane & 3;
+    for (int mt = 0; mt < 2; ++mt)
+      for (int r = 0; r < 4; ++r) {
+        const int row = 16 * mt + g + 8 * (r >> 1), col = 2 * t + (r & 1);
+        int s = 0;
+        for (int k = 0; k < 32; ++k) s += (int)m.A[row][k] * m.B[k][col];
+        m.d[lane][mt][r] = s;
+      }
+  }
+}
+
+// One element (a, b: 32 digits each) through the kernel's staging and
+// fragment functions (pitch 1) and the mma model: the A (32 x 32) and B
+// (32 x 8) the fragments spell, and the 32 columns as the lanes store them
+// (a column no lane stores stays -1).
+void hc_conv_frags(const int* a, const int* b, unsigned char* A,
+                   unsigned char* B, int* cols) {
+  u32 pa[CONV_WORDS], rev[CONV_WORDS];
+  conv_stage_in(a, b, 1, 0, 0, pa, rev, 1);
+  u32 af[32][2][4], bf[32][2];
+  for (int lane = 0; lane < 32; ++lane)
+    conv_frags(pa, rev, 1, lane, af[lane], bf[lane]);
+  static MmaModel m;
+  model_mma(af, bf, m);
+  for (int i = 0; i < 32 * 32; ++i) A[i] = m.A[i / 32][i % 32];
+  for (int i = 0; i < 32 * 8; ++i) B[i] = m.B[i / 8][i % 8];
+  for (int c = 0; c < 32; ++c) cols[c] = -1;
+  for (int lane = 0; lane < 32; ++lane)
+    cols[conv_out_col(lane)] = conv_pick(m.d[lane], lane);
+}
+
+// k_conv_mma replayed block by block: every thread's staging in, each
+// element's fragments from all 32 lanes, the mma model and each lane's
+// store into the tile, then every thread's staging out.
+void hc_conv_mma(const int* a, const int* b, int* out, long long n) {
+  std::vector<u32> pa(CONV_WORDS * CONV_PITCH), rev(CONV_WORDS * CONV_PITCH);
+  std::vector<int> so(CONV_DIGITS * CONV_PITCH);
+  static MmaModel m;
+  u32 af[32][2][4], bf[32][2];
+  for (long long e0 = 0; e0 < n; e0 += CONV_TILE) {
+    for (int t = 0; t < CONV_TILE; ++t)
+      conv_stage_in(a, b, n, e0, t, pa.data(), rev.data(), CONV_PITCH);
+    for (int te = 0; te < CONV_TILE; ++te) {
+      for (int lane = 0; lane < 32; ++lane)
+        conv_frags(pa.data() + te, rev.data() + te, CONV_PITCH, lane,
+                   af[lane], bf[lane]);
+      model_mma(af, bf, m);
+      for (int lane = 0; lane < 32; ++lane)
+        so[conv_out_col(lane) * CONV_PITCH + te] = conv_pick(m.d[lane], lane);
+    }
+    for (int t = 0; t < CONV_TILE; ++t)
+      conv_stage_out(so.data(), out, n, e0, t, CONV_PITCH);
+  }
+}
+
 // The variable-base kernel (points.cuh), one call per point: scale16
-// (pts (n, 3, 8) -> out (W4, n, 3, 8)).
-void hc_scale16(const u32* consts, const u32* pts, u32* out, long long n,
-                int windows) {
-  Consts c = load_consts(consts);
+// (pts (n, 3, 8) -> out (W4, n, 3, 8)) on the lean backend's host branch.
+void hc_scale16(const u32* lean_consts, const u32* pts, u32* out,
+                long long n, int windows) {
+  LeanConsts c = load_lean_consts(lean_consts);
   for (long long i = 0; i < n; ++i)
     scale16_point(c, pts, out, n, i, windows);
 }
@@ -351,7 +429,10 @@ void hc_h_tables(const u32* lean_consts, const int* row_ptr,
 }
 
 // The lean field backend's host branch (field_lean.cuh) on n elements:
-// op 0 mont_mul, 1 fe_add, 2 fe_sub, 3 mul_b3 (b ignored).
+// op 0 mont_mul, 1 fe_add, 2 fe_sub, 3 mul_b3 (b ignored), 4 the
+// squaring, lean_sqr_wide then mont_redc<1> (b ignored), 5 the product
+// lean_mul_wide then mont_redc<1>; 6 a^2, b^2 and a b through one
+// mont_redc<3> (in out's rows 3i, 3i + 1, 3i + 2; n / 3 triples).
 void hc_lean_field(const u32* lean_consts, const u32* a, const u32* b,
                    u32* out, int n, int op) {
   LeanConsts c = load_lean_consts(lean_consts);
@@ -364,8 +445,27 @@ void hc_lean_field(const u32* lean_consts, const u32* a, const u32* b,
       fe_add(c, x, y, o);
     else if (op == 2)
       fe_sub(c, x, y, o);
-    else
+    else if (op == 3)
       mul_b3(c, x, o);
+    else if (op == 4 || op == 5) {
+      u32 t[1][2 * NW];
+      if (op == 4)
+        lean_sqr_wide(x, t[0]);
+      else
+        lean_mul_wide(x, y, t[0]);
+      mont_redc<1>(c, t);
+      fe_copy(o, t[0]);
+    }
+  }
+  if (op != 6) return;
+  for (int i = 0; 3 * i + 2 < n; ++i) {
+    const u32 *x = a + i * NW, *y = b + i * NW;
+    u32 t[3][2 * NW];
+    lean_sqr_wide(x, t[0]);
+    lean_sqr_wide(y, t[1]);
+    lean_mul_wide(x, y, t[2]);
+    mont_redc<3>(c, t);
+    for (int k = 0; k < 3; ++k) fe_copy(out + (3 * i + k) * NW, t[k]);
   }
 }
 

@@ -26,7 +26,7 @@ from ..utils.config import CONFIG
 CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
 SOURCES = ("field.cuh", "field_lean.cuh", "curve.cuh", "msm.cuh", "msm.cu", "msm_designs.cuh",
-           "msm_designs.cu", "mont.cuh", "mont.cu", "conv_mma.cu",
+           "msm_designs.cu", "mont.cuh", "mont.cu", "conv_mma.cuh", "conv_mma.cu",
            "points.cuh", "points.cu", "tables.cuh", "tables.cu")
 UNITS = tuple(s for s in SOURCES if s.endswith(".cu"))
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"

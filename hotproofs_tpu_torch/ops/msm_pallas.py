@@ -37,8 +37,9 @@ Bases that are not a key's (Spartan's matrix tables are points of their
 own) come through msm_var, with the kernel of csrc/points.cu:
 
   K5 scale16  (replaces the reference's scale_points16, ops/msm.py:62: the
-               windows 16^w P of projective points, one thread a point;
-               scale_points16, the key preparation, goes through it too)
+               windows 16^w P of projective points, one thread a point,
+               Jacobian doublings between stored windows; scale_points16,
+               the key preparation, goes through it too)
 
 then K4 to_affine and K1-K3; a base at the identity gets the scalar 0.
 
@@ -586,24 +587,61 @@ def words_point(w: torch.Tensor) -> C.Point:
     return tuple(F.words_to_digits(w[..., c, :]) for c in range(3))
 
 
+def _jac_double(spec: C.CurveSpec, X, Y, Z):
+    """dbl-2009-l (a = 0) on h16 Jacobian coordinates, as csrc/points.cuh:
+    jac_double: A = X^2, B = Y^2, C = B^2, D = 2((X + B)^2 - A - C), E = 3A,
+    X3 = E^2 - 2D, Y3 = E(D - X3) - 8C, Z3 = 2YZ."""
+    f = spec.base
+    mul = lambda a, b: F.h_mont_mul(f, a, b)
+    add = lambda a, b: F.h_add(f, a, b)
+    sub = lambda a, b: F.h_sub(f, a, b)
+    m = mul(torch.stack([X, Y, Y]), torch.stack([X, Y, Z]))
+    A, B, YZ = m[0], m[1], m[2]
+    XB = add(X, B)
+    E = add(add(A, A), A)
+    m = mul(torch.stack([B, XB, E]), torch.stack([B, XB, E]))
+    Cc, S, Fe = m[0], m[1], m[2]
+    D = sub(sub(S, A), Cc)
+    D = add(D, D)
+    X3 = sub(Fe, add(D, D))
+    C8 = add(Cc, Cc)
+    C8 = add(C8, C8)
+    C8 = add(C8, C8)
+    Y3 = sub(mul(E, sub(D, X3)), C8)
+    return X3, Y3, add(YZ, YZ)
+
+
 def scale16_plain(spec: C.CurveSpec, pts: torch.Tensor,
                   windows: int) -> torch.Tensor:
-    """Plain torch version of scale16: 4 complete doublings a window."""
-    pt = tuple(F.words_to_h16(pts[:, c]) for c in range(3))
+    """Plain torch version of scale16, in the kernel's formulas: the point
+    enters Jacobian form once, (XZ, YZ^2, Z); 4 Jacobian doublings a
+    window; each window stored as (XZ, Y, Z^3), and as (0 : 1 : 0) where
+    Z = 0. All values are canonical, so the words equal the kernel's."""
+    f = spec.base
+    mul = lambda a, b: F.h_mont_mul(f, a, b)
+    X, Y, Z = (F.words_to_h16(pts[:, c]) for c in range(3))
+    z2 = mul(Z, Z)
+    X, Y = mul(X, Z), mul(Y, z2)
+    one = torch.tensor(F.int_to_h16(f.r_mod_p), dtype=Z.dtype,
+                       device=Z.device).expand_as(Z)
     out = []
     for w in range(windows):
-        out.append(_proj_words(pt))
+        z2 = mul(Z, Z)
+        inf = (Z == 0).all(-1, keepdim=True)
+        out.append(_proj_words((mul(X, Z), torch.where(inf, one, Y),
+                                mul(z2, Z))))
         if w + 1 < windows:
             for _ in range(RADIX_BITS):
-                pt = C.h_pt_double(spec, pt)
+                X, Y, Z = _jac_double(spec, X, Y, Z)
     return torch.stack(out)
 
 
 def scale16(spec: C.CurveSpec, pts: torch.Tensor,
             windows: int) -> torch.Tensor:
     """(n, 3, 8) projective Montgomery words -> (W4, n, 3, 8) holding
-    16^w * P_i at [w, i], W4 = windows (one thread a point, csrc/points.cu).
-    The identity stays the identity."""
+    16^w * P_i at [w, i], W4 = windows (one thread a point, csrc/points.cu:
+    Jacobian doublings on the lean field backend). The identity stays the
+    identity, (0 : 1 : 0)."""
     n = pts.shape[0]
     _check_input("scale16 points", pts, (n, 3, NW))
     if not _on_cuda("scale16", pts):
@@ -611,8 +649,8 @@ def scale16(spec: C.CurveSpec, pts: torch.Tensor,
     out = torch.empty((windows, n, 3, NW), dtype=torch.int32,
                       device=pts.device)
     if n and windows:
-        _launch("scale16", lib().hp_scale16, _consts_arg(spec), _ptr(pts),
-                _ptr(out), n, windows, device=pts.device)
+        _launch("scale16", lib().hp_scale16, _consts_arg(spec, True),
+                _ptr(pts), _ptr(out), n, windows, device=pts.device)
     return out
 
 

@@ -333,24 +333,25 @@ def mont_mul_part(spec: F.FieldSpec, a: torch.Tensor, b: torch.Tensor,
 
 
 def conv_mma_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Plain torch version of K11b, in the kernel's formulation: the outer
-    product a_j b_k (1024 rows), split into high and low bytes, each summed
-    along the diagonals j + k = c < 32."""
+    """Plain torch version of K11b, in the kernel's formulation: per element
+    col = T_b a, T_b the lower-triangular Toeplitz matrix of b's bytes
+    (T_b[c][j] = b_{c-j}, 0 for j > c), on the low byte of every digit (the
+    kernel's u8 operands)."""
     n = a.shape[1]
-    outer = (a[:, None, :] * b[None, :, :]).reshape(L * L, n)
     idx = torch.arange(L, device=a.device)
-    diag = (idx[:, None] + idx[None, :]).flatten()
-    keep = diag < L
-    cols = lambda x: torch.zeros((L, n), dtype=torch.int32, device=a.device
-                                 ).index_add_(0, diag[keep], x[keep])
-    return (cols(outer >> 8) << 8) + cols(outer & 0xFF)
+    d = idx[:, None] - idx[None, :]
+    bz = torch.cat([b & 0xFF, torch.zeros((1, n), dtype=b.dtype,
+                                          device=b.device)])
+    T = bz[torch.where(d >= 0, d, L)]                    # (32, 32, n)
+    return (T * (a & 0xFF)[None]).sum(dim=1, dtype=torch.int32)
 
 
 def conv_mma(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """K11b on limb-major (32, N) digits -> (32, N) int32: the low 32 lazy
     columns sum_{j+k=c} a_j b_k of the digit convolution (no mask, no
-    carry), computed as a constant diagonal-sum matrix times the outer
-    product's bytes on the tensor cores. & 0xFF gives the "conv" part."""
+    carry), computed per element as the Toeplitz matrix of b's bytes times
+    a's bytes on the tensor cores (csrc/conv_mma.cuh). & 0xFF gives the
+    "conv" part."""
     n = _check_lm("conv_mma", a, b)
     if not on_cuda("conv_mma", a, b):
         return conv_mma_plain(a, b)

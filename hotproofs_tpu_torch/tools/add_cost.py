@@ -1,5 +1,6 @@
-"""What a mixed add costs on the card: msm_chain and h_tables timed, with
-the instructions of their loops counted from the machine code.
+"""What a mixed add, a doubling and the tensor-core convolution cost on the
+card: msm_chain, h_tables, scale16 and conv_mma timed, with the
+instructions of their loops counted from the machine code.
 
     PYTHONPATH=TREE python hotproofs_tpu_torch/tools/add_cost.py [--out F]
     PYTHONPATH=. python hotproofs_tpu_torch/tools/add_cost.py --counts \
@@ -37,12 +38,29 @@ path, not with -m, for that reason). On that tree's card build it:
     agree between trees;
   * times the main path's to_affine (1,034,368 points) and mont_mul (the
     prover's to_mont shape, 255,248 elements; 20 calls in a CUDA graph) on
-    seeded inputs.
+    seeded inputs;
+  * counts k_scale16's doubling loop by class (the longest loop that
+    touches no global memory; a tree whose compiler unrolled it gives its
+    window loop, the doublings and a store) and times scale16 at W4 = 64
+    on 32 points (one warp: the latency of the 252-doubling chain), on the
+    key's 16,384 and on the tables' 49,152: seeded curve points P_i = (i +
+    1) G, each at a seeded Z != 1. It prints the SM cycles a doubling a
+    warp-step (at the maximum clock), the SM clock and power draw that
+    nvidia-smi samples while it runs for half a second, time x clock x SMs / (warps x 4 (W4 - 1)) over the SMs
+    that hold a block, beside chip_smoke.py's bound (Jacobian doublings, 2
+    products and 5 squarings, and 2 products a stored window), and the
+    sha256 of the affine output (to_affine on the card), which every tree
+    must give;
+  * times conv_mma at N = 16,384 and 131,072 on seeded digits, as
+    tools/field_mul.py times it (20 calls in a CUDA graph, over operand
+    sets that together exceed the L2 cache), checked against its plain
+    version and the conv part, beside its bound (3 x 128 bytes an
+    element).
 
-Prints one line per measurement and, last, one JSON object (also written
-to --out). Needs a card, but for --counts, which prints the tables'
-lane-map counts alone (walk_counts: the half-warp map, a balanced
-warp, the kernel's; about 15 s on a CPU).
+--parts picks a subset (default: all). Prints one line per measurement
+and, last, one JSON object (also written to --out). Needs a card, but for
+--counts, which prints the tables' lane-map counts alone (walk_counts: the
+half-warp map, a balanced warp, the kernel's; about 15 s on a CPU).
 """
 
 from __future__ import annotations
@@ -78,7 +96,21 @@ ISSUE_PER_CLOCK_SM = 4      # warp instructions an SM issues a clock
 # products of 264 32-bit multiplies, at 64 a clock an SM.
 MUL32_PER_MIXED_ADD = 11 * 264
 IMUL_PER_CLOCK_SM = 64
-PTXAS_KERNELS = ("k_msm_chain", "k_h_tables")   # printed; all are kept
+PTXAS_KERNELS = ("k_msm_chain", "k_h_tables", "k_scale16",
+                 "k_conv_mma")                  # printed; all are kept
+PARTS = ("sass", "chain", "tables", "main", "scale16", "conv")
+SCALE_POINTS = (32, 16384, 49152)   # one warp, the key's, the tables'
+SCALE_W4 = 64
+POINT_BLOCK = 128                   # threads of a scale16 block
+# chip_smoke.py's count for scale16, in CIOS products of 264 multiplies: a
+# Jacobian doubling's 2 products and 5 squarings of 208, and 2 products a
+# stored window (x Z and Z^3).
+MONT_PER_DOUBLE = 2 + 5 * 208 / 264
+MONT_PER_WINDOW = 2
+CONV_NS = (16384, 131072)
+CONV_BYTES = 3 * 128                # a, b in and the columns out an element
+COLD_BYTES = 128 << 20              # operand sets: over twice the L2
+HBM_BYTES_PER_S = 3.35e12
 # h_tables again with every column taken mod NEAR_COLS: the same adds, their
 # bases gathered from 64 x NEAR_COLS points (the L2 holds them) instead of
 # the whole key, which splits the gathers' cost from the adds'.
@@ -115,6 +147,39 @@ def cuda_ms(fn, reps: int = REPS) -> float:
     return start.elapsed_time(end) / reps
 
 
+def under_load(fn, seconds: float = 0.5) -> Dict[str, float]:
+    """The card's SM clock (MHz, median) and power draw (W, largest) that
+    nvidia-smi samples every 20 ms while fn runs back to back for about
+    `seconds`."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    fn()
+    t1.record()
+    t1.synchronize()
+    reps = max(1, int(seconds * 1e3 / max(t0.elapsed_time(t1), 1e-3)))
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--id=0", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "20"],
+        stdout=subprocess.PIPE, text=True)
+    try:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        text = smi.communicate()[0]
+    rows = [[float(v) for v in line.split(",")] for line in
+            text.strip().splitlines() if line.count(",") == 1]
+    if not rows:
+        return {"clock_mhz": float("nan"), "power_w": float("nan")}
+    clocks = sorted(r[0] for r in rows)
+    return {"clock_mhz": clocks[len(clocks) // 2],
+            "power_w": max(r[1] for r in rows)}
+
+
 def graph_ms(fn, reps: int) -> float:
     """ms per call of fn, reps calls captured in one CUDA graph (a call
     this short costs the host more than the card: tools/field_mul.py)."""
@@ -143,12 +208,9 @@ def rand_words(rng: np.random.Generator, shape, dev) -> torch.Tensor:
     return torch.from_numpy(w.astype(np.uint32).view(np.int32)).to(dev)
 
 
-def sass_loop_counts(lib_path: str, kernel: str) -> Dict[str, object]:
-    """Instructions of `kernel`'s add loop by class, from cuobjdump -sass
-    of the library: the longest span from a backward branch's target to
-    the branch that loads from global memory and shuffles nothing (the
-    chain's loop, not its join). A loop the compiler unrolled holds more
-    than one add: loads / 16 (one affine base is 16 words)."""
+def sass_loops(lib_path: str, kernel: str):
+    """`kernel`'s loops in cuobjdump -sass of the library: for every
+    backward branch, the opcodes from its target to it."""
     tool = os.path.join(os.path.dirname(cuda_lib.nvcc()), "cuobjdump")
     text = subprocess.run([tool, "-sass", lib_path], capture_output=True,
                           text=True, check=True).stdout
@@ -164,19 +226,16 @@ def sass_loop_counts(lib_path: str, kernel: str) -> Dict[str, object]:
             txt = m.group(2).strip()
             op = re.sub(r"^@!?U?P[T0-9]+\s+", "", txt).split()[0]
             ins.append((int(m.group(1), 16), op, txt))
-    best = None
+    loops = []
     for addr, op, txt in ins:
         t = re.search(r"0x([0-9a-f]+)", txt)
-        if not (op.startswith("BRA") and t and int(t.group(1), 16) < addr):
-            continue
-        ops = [o for a, o, _ in ins if int(t.group(1), 16) <= a <= addr]
-        if any(o.startswith("LDG") for o in ops) and \
-                not any(o.startswith("SHFL") for o in ops) and \
-                (best is None or len(ops) > len(best)):
-            best = ops
-    if best is None:
-        raise RuntimeError(f"{kernel}: no loop of loads found")
-    loop = best
+        if op.startswith("BRA") and t and int(t.group(1), 16) < addr:
+            loops.append([o for a, o, _ in ins
+                          if int(t.group(1), 16) <= a <= addr])
+    return ins, loops
+
+
+def class_counts(loop: List[str]) -> Dict[str, object]:
     counts = {k: 0 for k in CLASSES}
     counts["other"] = 0
     other: Dict[str, int] = {}
@@ -186,19 +245,61 @@ def sass_loop_counts(lib_path: str, kernel: str) -> Dict[str, object]:
         counts[k] += 1
         if k == "other":
             other[head] = other.get(head, 0) + 1
-    wide = sum(op.startswith("IMAD.WIDE") for op in loop)
-    hi = sum(op.startswith("IMAD.HI") for op in loop)
-    x = sum(op.startswith("IADD3.X") or op.startswith("IMAD.X")
-            for op in loop)
+    return {"classes": counts,
+            "other_ops": dict(sorted(other.items(), key=lambda kv: -kv[1])
+                              [:8]),
+            "IMAD.WIDE": sum(op.startswith("IMAD.WIDE") for op in loop),
+            "IMAD.HI": sum(op.startswith("IMAD.HI") for op in loop),
+            "carry (.X)": sum(op.startswith("IADD3.X")
+                              or op.startswith("IMAD.X") for op in loop)}
+
+
+def sass_loop_counts(lib_path: str, kernel: str) -> Dict[str, object]:
+    """Instructions of `kernel`'s add loop by class, from cuobjdump -sass
+    of the library: the longest span from a backward branch's target to
+    the branch that loads from global memory and shuffles nothing (the
+    chain's loop, not its join). A loop the compiler unrolled holds more
+    than one add: loads / 16 (one affine base is 16 words)."""
+    ins, loops = sass_loops(lib_path, kernel)
+    best = None
+    for ops in loops:
+        if any(o.startswith("LDG") for o in ops) and \
+                not any(o.startswith("SHFL") for o in ops) and \
+                (best is None or len(ops) > len(best)):
+            best = ops
+    if best is None:
+        raise RuntimeError(f"{kernel}: no loop of loads found")
+    loop = best
     words = sum(4 if ".128" in op else 2 if ".64" in op else 1
                 for op in loop if op.startswith("LDG"))
     adds = max(words // 16, 1)
     return {"kernel": kernel, "instructions": len(loop), "adds": adds,
             "instructions_per_add": len(loop) / adds,
-            "function_instructions": len(ins), "classes": counts,
-            "other_ops": dict(sorted(other.items(), key=lambda kv: -kv[1])
-                              [:8]),
-            "IMAD.WIDE": wide, "IMAD.HI": hi, "carry (.X)": x}
+            "function_instructions": len(ins), **class_counts(loop)}
+
+
+def sass_doubling_loop(lib_path: str, kernel: str) -> Dict[str, object]:
+    """`kernel`'s (a k_scale16) doubling loop by class: the longest loop
+    that reads and writes no global memory (the 4 doublings between two
+    stored windows, with the rolled rounds of their products inside it);
+    where the compiler unrolled it, the longest loop that stores (the
+    window loop: the doublings and the store). A rolled round inside
+    counts once."""
+    ins, loops = sass_loops(lib_path, kernel)
+    mem = ("LDG", "STG")
+    inner = [ops for ops in loops
+             if not any(o.startswith(mem) for o in ops)]
+    which = "doubling loop"
+    if not inner:
+        inner = [ops for ops in loops if any(o.startswith("STG")
+                                             for o in ops)]
+        which = "window loop"
+    if not inner:
+        raise RuntimeError("k_scale16: no loop found")
+    loop = max(inner, key=len)
+    return {"kernel": kernel, "loop": which,
+            "instructions": len(loop), "loops": len(loops),
+            "function_instructions": len(ins), **class_counts(loop)}
 
 
 def chain_splits() -> List[Optional[int]]:
@@ -345,6 +446,91 @@ def main_path_times(dev, rng, out) -> Dict[str, float]:
     return {"to_affine": t_aff, "mont_mul": t_mm}
 
 
+def seeded_points(spec, n: int, rng) -> torch.Tensor:
+    """(n, 3, 8) projective Montgomery words of P_i = (i + 1) G, each at a
+    seeded Z != 1 ((lam x, lam y, lam) for a seeded lam), built on the
+    host's ints."""
+    f = spec.base
+    pts, p = [], None
+    for _ in range(n):
+        p = C.host_add(spec, p, spec.gen)
+        pts.append(p)
+    lam = [int(v) for v in rng.integers(2, 1 << 62, n)]
+    words = np.zeros((n, 3, 8), np.uint32)
+    for i, ((x, y), k) in enumerate(zip(pts, lam)):
+        for c, v in enumerate((x * k, y * k, k)):
+            m = f.to_mont_int(v % f.p)
+            words[i, c] = [(m >> (32 * j)) & 0xFFFFFFFF for j in range(8)]
+    return torch.from_numpy(words.view(np.int32))
+
+
+def scale16_times(dev, rng, clock: float, out) -> List[dict]:
+    """scale16 at W4 = 64 on SCALE_POINTS seeded points: ms, SM cycles a
+    doubling a warp-step, the bound, and the affine output's sha256."""
+    spec = C.PALLAS
+    pool = seeded_points(spec, max(SCALE_POINTS), rng).to(dev)
+    rate = IMUL_PER_CLOCK_SM * SMS * clock
+    rows = []
+    for n in SCALE_POINTS:
+        pts = pool[:n].contiguous()
+        got = MP.scale16(spec, pts, SCALE_W4)
+        torch.cuda.synchronize()
+        aff = affine_sha(spec, got.reshape(-1, 3, 8))
+        ms = cuda_ms(lambda: MP.scale16(spec, pts, SCALE_W4))
+        doublings = 4 * (SCALE_W4 - 1)
+        warps = -(-n // 32)
+        sms = min(SMS, -(-n // POINT_BLOCK))
+        cyc = ms * 1e-3 * clock * sms / (warps * doublings)
+        load = under_load(lambda: MP.scale16(spec, pts, SCALE_W4))
+        monts = n * (SCALE_W4 - 1) * (4 * MONT_PER_DOUBLE + MONT_PER_WINDOW)
+        nbytes = (pts.numel() + got.numel()) * 4
+        bound = max(monts * 264 / rate, nbytes / HBM_BYTES_PER_S) * 1e3
+        row = {"points": n, "windows": SCALE_W4, "ms": ms, "warps": warps,
+               "sms": sms, "cycles_per_doubling_warp_step": cyc,
+               "bound_ms": bound, "bound_share": bound / ms,
+               "affine_sha": aff, **load}
+        rows.append(row)
+        out(f"scale16 {n} points W4 {SCALE_W4}: {ms:.4f} ms, {warps} warps "
+            f"({warps / SMS:.2f} an SM), {cyc:.0f} SM cycles a doubling a "
+            f"warp-step at the maximum clock; under load {load['clock_mhz']:.0f}"
+            f" MHz, {load['power_w']:.0f} W; bound {bound:.4f} ms "
+            f"({100 * bound / ms:.1f} %); affine sha256 {aff[:16]}")
+        del got
+    return rows
+
+
+def conv_times(dev, out) -> List[dict]:
+    """conv_mma at CONV_NS on seeded digits (torch.Generator, seed 0): the
+    mean of 20 calls in one CUDA graph over operand sets that exceed the
+    L2 together; == plain, and & 0xFF == the conv part, on set 0."""
+    from hotproofs_tpu_torch.ops import pallas_field as PF
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    rows = []
+    for n in CONV_NS:
+        sets = max(1, min(32, -(-COLD_BYTES // (n * CONV_BYTES))))
+        a, b = (torch.randint(0, 256, (sets, 32, n), generator=gen,
+                              device=dev, dtype=torch.int32)
+                for _ in range(2))
+        a[0, :, :3] = 255
+        b[0, :, :3] = 255
+        got = PF.conv_mma(a[0], b[0])
+        ok = torch.equal(got, PF.conv_mma_plain(a[0], b[0])) and \
+            torch.equal(got & 0xFF, PF.mont_mul_part(
+                F.pallas_base, a[0], b[0], "conv"))
+        i = iter(range(1 << 30))
+        ms = graph_ms(lambda: PF.conv_mma(*(x[next(i) % sets]
+                                           for x in (a, b))), 20)
+        bound = n * CONV_BYTES / HBM_BYTES_PER_S * 1e3
+        rows.append({"n": n, "ms": ms, "ok": bool(ok), "bound_ms": bound,
+                     "bound_share": bound / ms})
+        out(f"conv_mma N={n}: {ms:.4f} ms, == plain and conv part: {ok}; "
+            f"bound {bound:.4f} ms by bytes ({100 * bound / ms:.1f} %)")
+        del a, b, got
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.
@@ -355,7 +541,12 @@ def main(argv=None) -> int:
                     help="print the tables' lane-map counts alone (any "
                          "device; with --device cpu, no card)")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--parts", default=",".join(PARTS),
+                    help="comma-separated subset of " + ",".join(PARTS))
     args = ap.parse_args(argv)
+    parts = set(args.parts.split(","))
+    if parts - set(PARTS):
+        raise SystemExit(f"add_cost: unknown parts {parts - set(PARTS)}")
     if args.counts:
         for name, _, csr, _ in table_shapes(torch.device(args.device)):
             print(f"{name}: {json.dumps(walk_counts(csr))}", flush=True)
@@ -383,15 +574,29 @@ def main(argv=None) -> int:
             doc["ptxas"].append(line.strip())
             if show:
                 say(f"ptxas: {line.strip()}")
-    doc["sass"] = sass_loop_counts(cuda_lib.build(), "k_msm_chain")
-    say("k_msm_chain loop: " + json.dumps(doc["sass"]))
-    doc["sass_tables"] = sass_loop_counts(cuda_lib.build(), "k_h_tables")
-    say("k_h_tables loop: " + json.dumps(doc["sass_tables"]))
+    if "sass" in parts or "chain" in parts:
+        doc["sass"] = sass_loop_counts(cuda_lib.build(), "k_msm_chain")
+        say("k_msm_chain loop: " + json.dumps(doc["sass"]))
+    if "sass" in parts:
+        doc["sass_tables"] = sass_loop_counts(cuda_lib.build(),
+                                              "k_h_tables")
+        say("k_h_tables loop: " + json.dumps(doc["sass_tables"]))
+        doc["sass_scale16"] = sass_doubling_loop(cuda_lib.build(),
+                                                 "k_scale16")
+        say("k_scale16 loop: " + json.dumps(doc["sass_scale16"]))
     rng = np.random.default_rng(args.seed)
-    doc["chain"] = chain_times(dev, rng, clock, say,
-                               doc["sass"]["instructions"])
-    doc["tables"] = table_times(dev, say)
-    doc["main"] = main_path_times(dev, rng, say)
+    if "chain" in parts:
+        doc["chain"] = chain_times(dev, rng, clock, say,
+                                   doc["sass"]["instructions"])
+    if "tables" in parts:
+        doc["tables"] = table_times(dev, say)
+    if "main" in parts:
+        doc["main"] = main_path_times(dev, rng, say)
+    if "scale16" in parts:
+        doc["scale16"] = scale16_times(dev, np.random.default_rng(args.seed),
+                                       clock, say)
+    if "conv" in parts:
+        doc["conv"] = conv_times(dev, say)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

@@ -1,5 +1,5 @@
-"""The bucket designs, msm_chain and h_tables of two or more source trees,
-timed in turns on one card.
+"""The bucket designs, msm_chain, h_tables, scale16 and conv_mma of two or
+more source trees, timed in turns on one card.
 
 Each TREE is an unpacked copy of the repository (for example `git archive`
 of the parent commit and of the change, unpacked into a git-ignored
@@ -8,18 +8,22 @@ change, change, parent for two trees), this runs that tree's own `python -m
 hotproofs_tpu_torch.tools.msm_designs` (its kernels, its wrappers, its
 seeded data) and then this tree's `tools/add_cost.py` over that tree's
 package (msm_chain at 32 lanes and 132 x 128 x {1, 2, 4, 8}, h_tables on
-the BLAKE3 recursive SNARK's two tables, to_affine and mont_mul; it uses
-only public wrappers, so it times an older tree the same way), so every
+the BLAKE3 recursive SNARK's two tables, to_affine and mont_mul, scale16
+at 32, 16,384 and 49,152 points and conv_mma at N = 16,384 and 131,072;
+it uses only public wrappers, so it times an older tree the same way;
+--add-parts passes its --parts), so every
 tree is timed within one call on the same card; a spread between runs of
 one tree shows what a difference between trees must exceed. First every
 tree's kernels are built (the trees in parallel), and the ptxas lines
 (registers, stack, spills) of the kernels of PTXAS_KERNELS are printed,
 with the main path's kernels compared line for line between trees (a
-tree whose library is built already prints none). A run that fails is
-reported and the others go on.
+tree whose library is built already prints none). The affine outputs of
+h_tables, msm_chain and scale16 must agree across runs, and conv_mma must
+equal its plain version in each. A run that fails is reported and the
+others go on.
 
     python -m hotproofs_tpu_torch.tools.designs_ab TREE [TREE ...] [--out FILE]
-        [--no-designs]
+        [--no-designs] [--add-parts scale16,conv,...]
 
 Prints the card's name and power limit, the ptxas lines, one line per
 shape and run with msm_bucket, msm_merge, msm_wsum and msm_many and every
@@ -36,15 +40,16 @@ import re
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List
+from typing import Dict, List, Optional
 
-# Kernels whose ptxas lines are printed; MAIN_KERNELS' (the main path's,
-# and scale16, which shares their point formulas) must not differ between
-# trees when a change touches only the designs' or the tables' kernels.
+# Kernels whose ptxas lines are printed; MAIN_KERNELS' (the main path's)
+# must not differ between trees when a change touches only the designs',
+# the tables', the key preparation's or the field tools' kernels.
 MAIN_KERNELS = ("k_msm_bucket", "k_msm_merge", "k_msm_wsum", "k_to_affine",
-                "k_mont_mul", "k_mont_mul_em", "k_scale16")
+                "k_mont_mul", "k_mont_mul_em")
 PTXAS_KERNELS = MAIN_KERNELS + ("k_msm_bucket_tsplit", "k_msm_bucket_signed",
-                                "k_split_walk", "k_msm_chain", "k_h_tables")
+                                "k_split_walk", "k_msm_chain", "k_h_tables",
+                                "k_scale16", "k_conv_mma")
 ADD_COST = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "add_cost.py")
 
@@ -87,11 +92,13 @@ def run_designs(tree: str) -> Dict[str, object]:
     return json.loads(r.stdout.strip().splitlines()[-1])
 
 
-def run_add_cost(tree: str) -> Dict[str, object]:
-    """add_cost.py of this tree over tree's package: its JSON result."""
+def run_add_cost(tree: str, parts: Optional[str]) -> Dict[str, object]:
+    """add_cost.py of this tree over tree's package (all its parts, or
+    --parts): its JSON result."""
     env = dict(os.environ, PYTHONPATH=tree)
-    r = subprocess.run([sys.executable, ADD_COST], cwd=tree, env=env,
-                       capture_output=True, text=True)
+    r = subprocess.run([sys.executable, ADD_COST]
+                       + (["--parts", parts] if parts else []),
+                       cwd=tree, env=env, capture_output=True, text=True)
     if r.returncode != 0:
         raise RuntimeError(f"add_cost in {tree} failed ({r.returncode}):"
                            f"\n{r.stdout[-4000:]}\n{r.stderr[-4000:]}")
@@ -122,17 +129,33 @@ def main_ptxas(lines: List[str]) -> Dict[str, List[str]]:
 
 def add_summary(name: str, res: Dict[str, object]) -> List[str]:
     """add_cost's times in a few lines."""
-    lines = [f"{name} msm_chain ms (lanes/H): " + ", ".join(
-        f"{r['lanes']}/{r['H']} {r['ms']:.4f} ({r['cycles_per_warp_step']:.0f}"
-        f" cyc, issue {r['issue_ms']:.4f}, bound {r['bound_ms']:.4f})"
-        for r in res["chain"])]
+    lines = []
+    if "chain" in res:
+        lines.append(f"{name} msm_chain ms (lanes/H): " + ", ".join(
+            f"{r['lanes']}/{r['H']} {r['ms']:.4f} "
+            f"({r['cycles_per_warp_step']:.0f} cyc, issue "
+            f"{r['issue_ms']:.4f}, bound {r['bound_ms']:.4f})"
+            for r in res["chain"]))
     for side, t in res.get("tables", {}).items():
         lines.append(f"{name} h_tables {side} {t['ms']:.3f} ms (columns "
                      f"near {t['near_cols_ms']:.3f}), affine sha256 "
                      f"{t['affine_sha'][:16]}")
-    lines.append(f"{name} to_affine {res['main']['to_affine']:.4f} ms, "
-                 f"mont_mul {res['main']['mont_mul']:.4f} ms")
-    for k in ("sass", "sass_tables"):
+    if "main" in res:
+        lines.append(f"{name} to_affine {res['main']['to_affine']:.4f} ms, "
+                     f"mont_mul {res['main']['mont_mul']:.4f} ms")
+    if "scale16" in res:
+        lines.append(f"{name} scale16 ms (points): " + ", ".join(
+            f"{r['points']} {r['ms']:.4f} "
+            f"({r['cycles_per_doubling_warp_step']:.0f} cyc a doubling, "
+            f"{r['clock_mhz']:.0f} MHz {r['power_w']:.0f} W under load, "
+            f"bound {r['bound_ms']:.4f}, {100 * r['bound_share']:.1f} %)"
+            for r in res["scale16"]))
+    if "conv" in res:
+        lines.append(f"{name} conv_mma ms (N): " + ", ".join(
+            f"{r['n']} {r['ms']:.4f} ({'ok' if r['ok'] else 'FAILED'}, "
+            f"bound {r['bound_ms']:.4f}, {100 * r['bound_share']:.1f} %)"
+            for r in res["conv"]))
+    for k in ("sass", "sass_tables", "sass_scale16"):
         if k in res:
             lines.append(f"{name} {res[k]['kernel']} loop: "
                          f"{json.dumps(res[k])}")
@@ -165,6 +188,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None, help="also write the JSON here")
     ap.add_argument("--no-designs", action="store_true",
                     help="skip each tree's msm_designs")
+    ap.add_argument("--add-parts", default=None,
+                    help="add_cost.py's --parts (default: all)")
     args = ap.parse_args(argv)
     trees = [os.path.abspath(t) for t in args.trees]
     order = list(range(len(trees))) + list(reversed(range(len(trees))))
@@ -196,7 +221,7 @@ def main(argv=None) -> int:
                 ok = ok and all(d["ok"] for tag, row in res.items()
                                 if tag != "host"
                                 for d in row["designs"].values())
-            add = run_add_cost(trees[i])
+            add = run_add_cost(trees[i], args.add_parts)
             run["add_cost"] = add
             for line in add_summary(f"run {k} (tree {i})", add):
                 print(line, flush=True)
@@ -210,12 +235,18 @@ def main(argv=None) -> int:
             for side, t in run.get("add_cost", {}).get("tables", {}).items()}
     shas |= {((r["lanes"], r["H"]), r["affine_sha"]) for run in doc["runs"]
              for r in run.get("add_cost", {}).get("chain", [])}
+    shas |= {(("scale16", r["points"]), r["affine_sha"])
+             for run in doc["runs"]
+             for r in run.get("add_cost", {}).get("scale16", [])}
     if shas:
         agree = len(shas) == len({key for key, _ in shas})
         doc["sums_agree"] = agree
-        print(f"h_tables' affine tables and msm_chain's affine lane sums "
-              f"{'agree' if agree else 'DIFFER'} across runs", flush=True)
+        print(f"h_tables' affine tables, msm_chain's affine lane sums and "
+              f"scale16's affine windows {'agree' if agree else 'DIFFER'} "
+              f"across runs", flush=True)
         ok = ok and agree
+    ok = ok and all(r["ok"] for run in doc["runs"]
+                    for r in run.get("add_cost", {}).get("conv", []))
     print(f"card: {card()}", flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -67,9 +67,9 @@ DIGIT_BYTES, WORD_BYTES = 3 * 128, 3 * 32
 MULS = {"mont_mul": 264, "stage 1": 128, "stage 2": 192, "stage 3": 192 + 528,
         "stage 4": 320, "stage 5": 320, "conv": 528, "conv3": 3 * 528,
         "norm": 32, "conv_mma": 528}
-# conv_mma's tensor-core work: the same 528 products as two byte planes,
-# a multiply and an add each, at the dense int8 rate.
-MMA_OPS = 2 * 2 * 528
+# conv_mma's tensor-core work, counted as the function's: its 528 byte
+# products, a multiply and an add each, at the dense int8 rate.
+MMA_OPS = 2 * 528
 HBM_BYTES_PER_S = 3.35e12
 IMUL_PER_CLOCK_SM = 64      # 32-bit integer multiplies, compute capability 9.0
 TENSOR_INT8_OPS_PER_S = 1.979e15

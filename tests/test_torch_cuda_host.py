@@ -96,8 +96,7 @@ def test_point_ops_vs_plain_and_oracle(hc, name):
     cw = MP.consts_words(spec)
     plain = {0: C.pt_add(spec, P, Q),
              1: C.pt_add_mixed(spec, P, (Q[0], Q[1])),
-             2: C.pt_double(spec, P),
-             3: C.pt_neg(spec, P)}
+             2: C.pt_neg(spec, P)}
     pw, qw = _proj_words(P), _proj_words(Q)
     for op, want in plain.items():
         out = np.zeros_like(pw)
@@ -554,27 +553,127 @@ def _rand_points(spec, rng, n):
                               spec.gen) for _ in range(n)]
 
 
-@pytest.mark.parametrize("name", ["pallas", "bn254"])
-def test_scale16_body_vs_plain_and_host(hc, name):
-    """scale16's per-thread code == its plain version bit for bit
-    (the same doublings in the same order), == 16^w P on the host; the
-    identity stays the identity."""
+@pytest.mark.parametrize("w4", [1, 6])
+@pytest.mark.parametrize("name", ["pallas", "vesta", "bn254", "grumpkin"])
+def test_scale16_body_vs_plain_and_host(hc, name, w4):
+    """scale16's per-thread code (Jacobian doublings on the lean backend's
+    host branch, each level's products reduced together) == its plain
+    version bit for bit, == 16^w P on the host; a point of Z != 1 in; the
+    identity stays (0 : 1 : 0) at every window."""
     spec = C.CURVES[name]
+    f = spec.base
     pts = _rand_points(spec, np.random.default_rng(9), 5)
     pts[2] = None
-    P = MP.point_words(C.affine_to_mont(spec, pts))
-    w4 = 6
+    X, Y, Z = C.affine_to_mont(spec, pts)
+    lam = F.from_ints(f, [f.to_mont_int(7)] * 5)   # (7x, 7y, 7) at point 4
+    X[4], Y[4], Z[4] = (F.mont_mul(f, c[4:5], lam[4:5])[0] for c in (X, Y, Z))
+    P = MP.point_words((X, Y, Z))
     out = np.zeros((w4,) + tuple(P.shape), np.uint32)
-    hc.hc_scale16(_p(MP.consts_words(spec)),
+    hc.hc_scale16(_p(MP.lean_consts_words(spec)),
                   _p(np.ascontiguousarray(P.numpy().view(np.uint32))),
                   _p(out), LL(len(pts)), w4)
     plain = MP.scale16_plain(spec, P, w4)
     assert np.array_equal(out.view(np.int32), plain.numpy())
+    one = F.digits_to_words(torch.from_numpy(f.one_mont_limbs))
+    assert not bool(plain[:, 2, 0].any()) and not bool(plain[:, 2, 2].any())
+    assert bool((plain[:, 2, 1] == one).all())
     got = C.pt_to_affine_host(spec, MP.words_point(plain.reshape(-1, 3, 8)))
     want = []
     for w in range(w4):
         want += [C.host_scalar_mul(spec, 16 ** w, p) for p in pts]
     assert got == want
+
+
+@pytest.mark.parametrize("name", ["pallas", "vesta", "bn254", "grumpkin"])
+def test_lean_mont_sqr_vs_ints(hc, name):
+    """The lean backend's squaring (field_lean.cuh: lean_sqr_wide, the
+    cross products once, doubled, plus the squares; then mont_redc<1>, the
+    reduction of the low half plus the high half), on its host branch ==
+    x^2 / R mod p as integers, with 0, 1, p - 1, (p - 1) / 2, 2^255 - 1
+    mod p and words of all ones below p among seeded values; and ==
+    mont_mul(x, x). The wide product with the same reduction == x y / R,
+    and three reduced in one mont_redc<3> == the integers too."""
+    spec = C.CURVES[name]
+    f = spec.base
+    rng = np.random.default_rng(len(name) + 21)
+    xs = [0, 1, f.p - 1, (f.p - 1) // 2, ((1 << 255) - 1) % f.p,
+          (1 << (f.p.bit_length() - 1)) - 1] + \
+        [int.from_bytes(rng.bytes(32), "little") % f.p for _ in range(58)]
+    a = _words(torch.from_numpy(f.batch_to_limbs(xs)))
+    lw = MP.lean_consts_words(spec)
+    out, mul = np.zeros_like(a), np.zeros_like(a)
+    hc.hc_lean_field(_p(lw), _p(a), _p(a), _p(out), len(xs), 4)
+    hc.hc_lean_field(_p(lw), _p(a), _p(a), _p(mul), len(xs), 0)
+    rinv = pow(1 << 256, -1, f.p)
+    assert F.to_ints(f, _digits(out)) == [x * x * rinv % f.p for x in xs]
+    assert np.array_equal(out, mul)
+    ys = xs[::-1]
+    b = _words(torch.from_numpy(f.batch_to_limbs(ys)))
+    sos, tri = np.zeros_like(a), np.zeros_like(a)
+    hc.hc_lean_field(_p(lw), _p(a), _p(b), _p(sos), len(xs), 5)
+    assert F.to_ints(f, _digits(sos)) == [x * y * rinv % f.p
+                                          for x, y in zip(xs, ys)]
+    hc.hc_lean_field(_p(lw), _p(a), _p(b), _p(tri), len(xs), 6)
+    k = len(xs) // 3
+    want = [v for x, y in zip(xs[:k], ys[:k])
+            for v in (x * x * rinv % f.p, y * y * rinv % f.p,
+                      x * y * rinv % f.p)]
+    assert F.to_ints(f, _digits(tri[:3 * k])) == want
+
+
+def _toeplitz(b):
+    """T_b[c][j] = b_{c-j} (0 above the diagonal), as numpy."""
+    c, j = np.meshgrid(np.arange(32), np.arange(32), indexing="ij")
+    return np.where(c >= j, np.asarray(b)[np.clip(c - j, 0, 31)], 0)
+
+
+@pytest.mark.parametrize("digits", ["seeded", "all 255", "edges"])
+def test_conv_mma_fragments_spell_toeplitz(hc, digits):
+    """conv_mma's own fragment functions (conv_mma.cuh: the staging's packed
+    and reversed words, the byte-permuted windows) under a host model of
+    m16n8k32's u8 layout (A 16 x 32 row-major per m-tile, B 32 x 8
+    col-major, C/D 16 x 8): the A it spells is T_b, every column of B is a,
+    and the accumulator each lane stores gives every conv column once."""
+    rng = np.random.default_rng(31)
+    if digits == "seeded":
+        a, b = (rng.integers(0, 256, 32) for _ in range(2))
+    elif digits == "all 255":
+        a = b = np.full(32, 255)
+    else:                       # one digit set at either end of each
+        a, b = np.zeros(32, np.int64), np.zeros(32, np.int64)
+        a[[0, 31]], b[[0, 31]] = (255, 1), (1, 255)
+    a, b = (np.ascontiguousarray(x, np.int32) for x in (a, b))
+    A = np.zeros((32, 32), np.uint8)
+    B = np.zeros((32, 8), np.uint8)
+    cols = np.zeros(32, np.int32)
+    hc.hc_conv_frags(_p(a), _p(b), _p(A), _p(B), _p(cols))
+    assert np.array_equal(A, _toeplitz(b))
+    assert np.array_equal(B, np.repeat(a[:, None], 8, axis=1))
+    want = [sum(int(a[j]) * int(b[c - j]) for j in range(c + 1))
+            for c in range(32)]
+    assert cols.tolist() == want
+    if digits == "all 255":
+        assert want[31] == 32 * 255 ** 2       # the largest column
+
+
+def test_conv_mma_kernel_replay_vs_plain(hc):
+    """k_conv_mma's blocks replayed under g++ (staging, fragments, the mma
+    model, staging out) == conv_mma_plain == the conv part's columns,
+    at n = 300 (two full tiles and a part) with all-255 and zero
+    elements among seeded digits."""
+    spec = F.pallas_base
+    n = 300
+    a, b, _, _ = _mont_inputs(spec, n, seed=23)
+    a[5], b[5] = 255, 255
+    a[6] = 0
+    at, bt = np.ascontiguousarray(a.T), np.ascontiguousarray(b.T)
+    out = np.full_like(at, -7)
+    hc.hc_conv_mma(_p(at), _p(bt), _p(out), LL(n))
+    plain = PF.conv_mma_plain(torch.from_numpy(at), torch.from_numpy(bt))
+    assert np.array_equal(out, plain.numpy())
+    assert torch.equal(plain & 0xFF, PF.mont_mul_part_plain(
+        spec, torch.from_numpy(at), torch.from_numpy(bt), "conv"))
+    assert int(plain[31, 5]) == 32 * 255 ** 2 and not plain[:, 6].any()
 
 
 @pytest.mark.parametrize("name", ["pallas", "bn254"])

@@ -197,10 +197,11 @@ def test_walk_design_kernels_on_sparse_digits(dev, design, H):
     assert not bool(want[1, :, 2].any())
 
 
-@pytest.mark.parametrize("n,windows", [(1, 64), (37, 10), (300, 64)])
+@pytest.mark.parametrize("n,windows", [(1, 64), (37, 10), (300, 64),
+                                       (45, 1), (33, 2)])
 def test_scale16_kernel_vs_plain(dev, n, windows):
-    """scale16 == its plain version bit for bit (the same doublings), the
-    identity kept."""
+    """scale16 == its plain version bit for bit (the same Jacobian
+    doublings), the identity kept as (0 : 1 : 0)."""
     pts = [C.host_scalar_mul(SPEC, 3 + 7 * i, SPEC.gen) for i in range(n)]
     pts[n // 2] = None
     P = MP.point_words(C.affine_to_mont(SPEC, pts, dev))
@@ -209,6 +210,7 @@ def test_scale16_kernel_vs_plain(dev, n, windows):
     assert MP.launches["scale16"] == before + 1
     assert torch.equal(got, MP.scale16_plain(SPEC, P, windows))
     assert not bool(got[:, n // 2, 2].any())
+    assert bool(got[:, n // 2, 1].any())
 
 
 @pytest.mark.parametrize("m", [1, 2, 3, 8, 16, 1000])

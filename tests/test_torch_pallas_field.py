@@ -183,6 +183,36 @@ def test_conv_mma_plain_vs_conv_part_and_reference(name):
     assert np.array_equal(got.numpy(), np.asarray(ref))
 
 
+@pytest.mark.parametrize("name", FIELDS)
+def test_conv_mma_plain_vs_reference_conv_part_interpret(name):
+    """conv_mma_plain, the Toeplitz formulation (col = T_b a), against the
+    reference's conv part as a Pallas kernel through the interpreter: the
+    body of tools/bench_pallas_parts.py's k_conv over one block of the
+    package's lane width, without its & 0xFF (the lazy columns) and with
+    it (the conv part); all-255 elements among the seeded ones."""
+    import jax
+    from jax.experimental import pallas as pl
+    spec = F.FIELDS[name]
+    n = RPF.N_LANES
+    a, b, _, _ = _digits(spec, n, seed=19)
+    a[7:9], b[7:9] = 255, 255
+    at, bt = a.T.copy(), b.T.copy()
+
+    def k_conv(a_ref, b_ref, lazy_ref, conv_ref):
+        t = RPF._conv_rows(a_ref[:], b_ref[:], 2 * L)[:L]
+        lazy_ref[:] = t
+        conv_ref[:] = t & 0xFF
+
+    out = jax.ShapeDtypeStruct((L, n), jnp.int32)
+    lazy, conv = pl.pallas_call(k_conv, out_shape=(out, out),
+                                interpret=True)(jnp.asarray(at),
+                                                jnp.asarray(bt))
+    got = PF.conv_mma_plain(bridge.tensor(at), bridge.tensor(bt))
+    assert np.array_equal(got.numpy(), np.asarray(lazy))
+    assert np.array_equal((got & 0xFF).numpy(), np.asarray(conv))
+    assert int(got[L - 1, 7]) == L * 255 ** 2
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take():
     spec = F.pallas_base
     a, b, _, _ = _digits(spec, 8, seed=1)

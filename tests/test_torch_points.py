@@ -7,6 +7,7 @@ import pytest
 import torch
 
 from hotproofs_tpu_torch.ops import curve as C
+from hotproofs_tpu_torch.ops import field as F
 from hotproofs_tpu_torch.ops import msm_pallas as MP
 
 # pytest-xdist runs several workers on one host: one intra-op thread
@@ -51,6 +52,34 @@ def test_scale_points16_keeps_its_digit_interface():
     aff = C.pt_to_affine_host(spec, tuple(c.reshape(-1, 32) for c in got))
     assert aff == [C.host_scalar_mul(spec, 16 ** w, p)
                    for w in range(4) for p in pts]
+
+
+@pytest.mark.parametrize("w4", [1, 3])
+@pytest.mark.parametrize("name", ["pallas", "vesta", "bn254", "grumpkin"])
+def test_scale16_vs_scaled_affine_host(name, w4):
+    """scale16 (its plain version on the CPU: Jacobian doublings, stored
+    homogeneous) on points of Z != 1 == scaled_affine_host's 16^w P as
+    affine Montgomery digits; the identity comes out (0 : 1 : 0) at every
+    window."""
+    spec = C.CURVES[name]
+    f = spec.base
+    rng = np.random.default_rng(len(name) + w4)
+    pts = _points(spec, rng, 4, identity=(2,))
+    X, Y, Z = C.affine_to_mont(spec, pts)
+    lam = torch.from_numpy(f.batch_to_limbs(
+        [f.to_mont_int(int(k)) for k in rng.integers(2, 1 << 60, 4)]))
+    P = MP.point_words(tuple(F.mont_mul(f, c, lam) for c in (X, Y, Z)))
+    got = MP.scale16(spec, P, w4)
+    assert got.shape == (w4, 4, 3, 8)
+    one = F.digits_to_words(torch.from_numpy(f.one_mont_limbs))
+    assert torch.equal(got[:, 2, 1], one.expand(w4, 8))
+    assert not bool(got[:, 2, 0].any()) and not bool(got[:, 2, 2].any())
+    live = [i for i, p in enumerate(pts) if p is not None]
+    xa, ya = MP.scaled_affine_host(spec, [pts[i] for i in live], w4)
+    w = got[:, live].reshape(-1, 3, 8)
+    x, y = MP.to_affine_words_plain(spec, w[:, 0], w[:, 1], w[:, 2])
+    assert np.array_equal(F.words_to_digits(x).numpy(), xa.reshape(-1, 32))
+    assert np.array_equal(F.words_to_digits(y).numpy(), ya.reshape(-1, 32))
 
 
 @pytest.mark.parametrize("m", list(range(1, 17)))
