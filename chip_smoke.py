@@ -61,7 +61,9 @@ exit and no result line:
      segments in lockstep waves of 4, stopped after wave 1 and run again on
      the same checkpoints (4 resumed, 4 proved), and verified to its
      published root; then the launch counts of the phase (msm_bucket,
-     msm_merge, msm_wsum and mont_mul must be > 0); last, msm_bucket,
+     msm_merge, msm_wsum and mont_mul must be > 0) and the span timers
+     of segments/lockstep_wave and segments/prove_one (one a pool
+     segment: at least 4); last, msm_bucket,
      msm_merge, msm_wsum and mont_mul against their plain versions on the
      inputs of the first MSM and to_mont call of each shape, scalars not
      all zero, that the segment runs gave them (exact equality);
@@ -135,7 +137,24 @@ exit and no result line:
      shape equal to msm_many; then the launch counts of the phase
      (msm_bucket, msm_merge, msm_wsum and mont_mul must be > 0), those
      kernels against their plain versions on the phase's first commit and
-     to_mont inputs, the phase's time and peak device memory.
+     to_mont inputs, the phase's time and peak device memory;
+ 13. the batched Poseidon permutation (ops/poseidon.permute, the
+     poseidon_permute kernel), which phases 4 and 8-12 must not have
+     launched: with the launch counts set to 0, one permute of 131,072
+     seeded states in each of eight specs (Pallas and Vesta scalar
+     fields at the default (8, 57) and neptune (8, 55) rounds, BN254 and
+     Grumpkin, the Pallas field at t = 5 and 9), one launch each; then
+     each against its plain version (every state for the Pasta default
+     specs, the first 4,096 for the others; exact equality) and 16
+     states against host_permute, the kernel's time (CUDA-event mean of
+     5 after one) beside its bound and the plain time, the latency of one
+     state; four launches, each inside T.start_trace / T.stop_trace and
+     a T.span("smoke/poseidon"), whose Chrome traces must name the span
+     and the host's launch, whose timer must count each, and whose
+     kernel record must be there or reported lost by stop_trace (this
+     long-lived process can lose kernel records), then
+     tools/trace_check.py in a process of its own, whose three captures
+     must each name the kernel and the span and lose no record.
 The last two lines are the kernels' JSON summary (with each kernel's
 bound: the least time the card could take for the work of its timed
 call) and the result line.
@@ -180,6 +199,7 @@ KERNELS = {
     "conv_mma": ("conv_mma.cu", "tools/bench_pallas_parts.py:74"),
     "scale16": ("points.cu", "hotproofs_tpu/ops/msm.py:62"),
     "h_tables": ("tables.cu", "hotproofs_tpu/nova/spartan.py:427"),
+    "poseidon_permute": ("poseidon.cu", "hotproofs_tpu/ops/poseidon.py:247"),
 }
 MAIN = ("msm_bucket", "msm_merge", "msm_wsum", "to_affine",
         "mont_mul")                                            # phase 4
@@ -207,6 +227,9 @@ AFFINE_CHECK, SCALE_CHECK = 1 << 16, 1 << 12
 # Phase 9's check of scale16's affine windows against the host's ints: the
 # first points of each call that are not the identity.
 SCALE_HOST = 32
+# Phase 13: seeded states a spec, and the states of each spec but the
+# Pasta default ones held against the plain version.
+POSEIDON_N, POSEIDON_CHECK = 1 << 17, 1 << 12
 
 # The bound of a kernel's call: the larger of its bytes (each input read
 # once, each output written once) over the HBM rate and its 32-bit integer
@@ -522,6 +545,7 @@ def segments_phase(prover, data, ci, proof, root, dev, note) -> dict:
     from hotproofs_tpu_torch.ops import msm_pallas as MP
     from hotproofs_tpu_torch.parallel.segments import SegmentedProof
     from hotproofs_tpu_torch.tools import longchain_deep as LD
+    from hotproofs_tpu_torch.utils import telemetry as T_
 
     tag = "8 vk+segments"
     seen: dict = {}
@@ -652,6 +676,14 @@ def segments_phase(prover, data, ci, proof, root, dev, note) -> dict:
         "launches " + ", ".join(f"{k} {counts[k]}" for k in MAIN))
     for k in ("msm_bucket", "msm_merge", "msm_wsum", "mont_mul"):
         require(counts[k] > 0, f"{k} was not launched in phase 8")
+    # The span timers of the two segment paths (process totals: phase 8
+    # is the first to prove segments).
+    timers = T_.metrics.snapshot()["timers"]
+    for k in ("segments/lockstep_wave", "segments/prove_one"):
+        require(k in timers, f"no {k} span was timed")
+        say(tag, f"span timer {k}: {timers[k]}")
+    require(timers["segments/prove_one"]["calls"] >= 4,
+            "the thread pool's 4 segments were not timed")
     check_captured(seen, dev, note, tag)
     return counts
 
@@ -746,7 +778,7 @@ def compression_phase(prover, data, ci, proof, root, dev, note, stats,
     from spartan_chains import load_ref, port_stack
 
     tag = "9 compress"
-    counter = lambda k: T_.metrics.snapshot().get(k, 0)
+    counter = lambda k: T_.metrics.snapshot()["counters"].get(k, 0)
     spec = prover.ivc.curve
     ck = prover.ivc.ck
     seen: dict = {}
@@ -1352,7 +1384,7 @@ def rec_compress_phase(prover, rp, root, dev, note, stats, bounds, rate,
     from spartan_chains import host_tables
 
     tag = "11 rec-compress"
-    counter = lambda k: T_.metrics.snapshot().get(k, 0)
+    counter = lambda k: T_.metrics.snapshot()["counters"].get(k, 0)
     seen: list = []
     rs = prover.recursive
     # Tables an earlier run cached on disk would skip the kernel.
@@ -1832,6 +1864,129 @@ def field_phase(prover, dev, rng, note, stats, bounds) -> dict:
     return counts
 
 
+def poseidon_specs():
+    """Phase 13's specs: the Pasta transcript fields under both
+    parameterisations, the BN254 cycle's fields, and the Pallas scalar
+    field at t = 5 and 9 (the kernel's other widths)."""
+    from hotproofs_tpu_torch.ops import poseidon as P
+    return [P.make_spec("pallas_scalar"), P.make_spec("vesta_scalar"),
+            P.make_spec_neptune("pallas_scalar", 2),
+            P.make_spec_neptune("vesta_scalar", 2),
+            P.make_spec("bn254_scalar"), P.make_spec("grumpkin_scalar"),
+            P.make_spec("pallas_scalar", t=5),
+            P.make_spec("pallas_scalar", t=9)]
+
+
+def poseidon_muls(spec) -> int:
+    """32-bit multiplies of one permutation by the least known method, the
+    Poseidon paper's optimised partial rounds (as neptune runs them): a
+    full round's S-boxes on t lanes (x^2, x^4: squarings; x^5: a product)
+    and its t^2 MDS products; a partial round's S-box on one lane and a
+    sparse matrix of 2t - 1 products; one dense t^2 product where the
+    partial rounds begin. The kernel does t^2 a partial round."""
+    sbox = 2 * MUL32_PER_SQUARE + MUL32_PER_MONT
+    mds = spec.t * spec.t * MUL32_PER_MONT
+    return spec.r_full * (spec.t * sbox + mds) + mds + \
+        spec.r_partial * (sbox + (2 * spec.t - 1) * MUL32_PER_MONT)
+
+
+def poseidon_phase(dev, rng, note, stats, bounds, rate, smi) -> int:
+    """Phase 13: the batched Poseidon permutation. With the launch counts
+    set to 0, ops/poseidon.permute of POSEIDON_N seeded states in each of
+    the eight specs (the phase's main path; returns its launches of
+    poseidon_permute); then each output against the plain version (every
+    state for the Pasta default specs, the first POSEIDON_CHECK of the
+    others) and 16 states against host_permute; the kernel's and plain
+    times beside the bound, the latency of one state; launches under
+    on-demand traces and a span, here and in a process of its own."""
+    from hotproofs_tpu_torch.ops import field as F
+    from hotproofs_tpu_torch.ops import msm_pallas as MP
+    from hotproofs_tpu_torch.ops import poseidon as P
+    from hotproofs_tpu_torch.tools import field_mul as FM
+    from hotproofs_tpu_torch.tools import trace_check as TC
+    from hotproofs_tpu_torch.utils import telemetry as T_
+
+    tag = "13 poseidon"
+    specs = poseidon_specs()
+    states = [FM.random_elements(rng, s.field, POSEIDON_N * s.t, dev)
+              .reshape(POSEIDON_N, s.t, 32) for s in specs]
+    for s in specs:                       # constants on the card, untimed
+        P.permute(s, torch.zeros((1, s.t, 32), dtype=torch.int32,
+                                 device=dev))
+    torch.cuda.synchronize()
+    MP.reset_launches()
+    outs = [P.permute(s, x) for s, x in zip(specs, states)]
+    torch.cuda.synchronize()
+    launches = MP.launches["poseidon_permute"]
+    require(launches == len(specs), f"poseidon_permute launched {launches} "
+            f"times for {len(specs)} permute calls")
+
+    for i, (s, x, out) in enumerate(zip(specs, states, outs)):
+        name = f"{s.field.name} t={s.t} ({s.r_full}, {s.r_partial})"
+        n = POSEIDON_N if i < 2 else POSEIDON_CHECK
+        t0 = time.perf_counter()
+        want = P.permute_plain(s, x[:n])
+        torch.cuda.synchronize()
+        plain = (time.perf_counter() - t0) * 1e3
+        note("poseidon_permute", out[:n], want)
+        del want
+        ints = F.to_ints(s.field, x[:16], mont=True)
+        got = F.to_ints(s.field, out[:16], mont=True)
+        host = [P.host_permute(s, ints[k * s.t:(k + 1) * s.t])
+                for k in range(16)]
+        require(got == [v for row in host for v in row],
+                f"poseidon_permute != host_permute ({name})")
+        ms = cuda_ms(lambda: P.permute(s, x), 5)
+        # the states in and out, and the constants' words (rc, then mds)
+        bnd = bound(POSEIDON_N * poseidon_muls(s) / MUL32_PER_MONT,
+                    nbytes(x, out) + 32 * (s.n_rounds + s.t) * s.t, rate)
+        say(tag, f"{name}: == plain on {n} states (plain {plain:.1f} ms), "
+            f"== host_permute on 16; N={POSEIDON_N}: {ms:.4f} ms, bound "
+            f"{bnd[0]:.4f} ms by {bnd[1]} ({poseidon_muls(s)} multiplies "
+            f"a permutation), {100 * bnd[0] / ms:.1f} % of it [{smi}]")
+        if i == 0:
+            stats["poseidon_permute"].update(ms=ms, plain_ms=plain)
+            bounds["poseidon_permute"] = bnd
+            one = x[:1].clone()
+            P.permute(s, one)
+            lat = cuda_ms(lambda: P.permute(s, one), 5)
+            say(tag, f"{name}: one state (a random-oracle call) "
+                f"{lat:.4f} ms [{smi}]")
+        torch.cuda.empty_cache()
+
+    # The on-demand capture. In this process, minutes old, a capture can
+    # lose kernel records (PERF.md §7); stop_trace must then say so: a
+    # trace without the kernel whose loss went unreported fails. A process
+    # of its own (tools/trace_check.py) must keep every record.
+    x = states[0][:1024]
+    here = [TC.capture_once(x, "smoke/poseidon") for _ in range(4)]
+    require(all(t["span"] and t["timed"] and t["returned"] for t in here),
+            f"a capture in this process missed the span or its timer: {here}")
+    require(all(t["launched"] == 1 and t["launches"] >= 1 for t in here),
+            f"a capture in this process missed the host's launch: {here}")
+    require(all(t["kernel"] or t["lost"] >= 1 for t in here),
+            f"a capture lost the kernel's record unreported: {here}")
+    require(T_.stop_trace() is None, "a second stop_trace did not give None")
+    timer = T_.metrics.snapshot()["timers"]["smoke/poseidon"]
+    say(tag, f"on-demand captures in this process: the span named and timed "
+        f"in 4 of 4, the kernel named in {sum(t['kernel'] for t in here)} "
+        f"of 4, records reported lost (lost of launches) "
+        f"{[(t['lost'], t['launches']) for t in here]}; span timer {timer}")
+    res = subprocess.run(
+        [sys.executable, "-m", "hotproofs_tpu_torch.tools.trace_check"],
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    out = res.stdout.strip().splitlines()
+    require(res.returncode == 0, f"tools/trace_check.py failed (exit "
+            f"{res.returncode}): {out[-1:]} {res.stderr[-2000:]}")
+    fresh = json.loads(out[-1])["trials"]
+    say(tag, f"tools/trace_check.py in a process of its own: {len(fresh)} "
+        "captures, each names k_poseidon and the span, no kernel record "
+        "lost, its timer counted once "
+        f"({[t['bytes'] for t in fresh]} bytes)")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--seed", type=int, default=0)
@@ -2134,6 +2289,8 @@ def main() -> int:
     for k in MAIN:
         require(counts[k] > 0, f"{k} was not launched on the main path")
 
+    off_path = {"4": counts["poseidon_permute"]}
+
     # -- 6. the MSM bucket designs -------------------------------------------
     counts.update(designs_phase(prover, data, dev, rng, note, stats, bounds,
                                 rate))
@@ -2145,21 +2302,35 @@ def main() -> int:
 
     # -- 8. vk and segments --------------------------------------------------
     segments_phase(prover, data, ci, proof, root, dev, note)
+    off_path["8"] = MP.launches["poseidon_permute"]
 
     # -- 9. Spartan compression ----------------------------------------------
     counts.update(compression_phase(prover, data, ci, proof, root, dev, note,
                                     stats, bounds, rate, smi))
+    off_path["9"] = MP.launches["poseidon_permute"]
 
     # -- 10. the recursive SNARK ---------------------------------------------
     _, rp = recursive_phase(prover, data, ci, root, dev, note, rate, smi)
+    off_path["10"] = MP.launches["poseidon_permute"]
 
     # -- 11. the compressed recursive proof -----------------------------------
     counts.update(rec_compress_phase(prover, rp, root, dev, note, stats,
                                      bounds, rate, smi))
+    off_path["11"] = MP.launches["poseidon_permute"]
 
     # -- 12. per-step prove, checkpoints and the mesh --------------------------
     steps_mesh_phase(prover, data, ci, proof, proofs, root, dev, note, rng,
                      smi)
+    off_path["12"] = MP.launches["poseidon_permute"]
+
+    # -- 13. the batched Poseidon permutation ---------------------------------
+    say("13 poseidon", "poseidon_permute launches in phases 4 and 8-12 "
+        "(the kernel is on none of their paths): " + ", ".join(
+            f"{k} {v}" for k, v in off_path.items()))
+    require(not any(off_path.values()), "poseidon_permute ran on a path "
+            "that does not call it")
+    counts["poseidon_permute"] = poseidon_phase(dev, rng, note, stats,
+                                                bounds, rate, smi)
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": CSRC + src,

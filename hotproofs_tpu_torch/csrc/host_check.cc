@@ -11,6 +11,7 @@
 #include "mont.cuh"
 #include "msm_designs.cuh"
 #include "points.cuh"
+#include "poseidon.cuh"
 #include "tables.cuh"
 
 using namespace hp;
@@ -473,6 +474,24 @@ void hc_lean_field(const u32* lean_consts, const u32* a, const u32* b,
 void hc_lean_point_op(const u32* lean_consts, const u32* p, const u32* q,
                       u32* out, int n, int op) {
   point_ops(load_lean_consts(lean_consts), p, q, out, n, op);
+}
+
+// k_poseidon's body for every state of in (n, t, 32) Montgomery digits;
+// returns 1 for a t the kernel is not built for.
+int hc_poseidon(const u32* fconsts, const u32* rc_mds, int t, int r_full,
+                int r_partial, const int* in, int* out, long long n) {
+  const LeanConsts c = lean_field_consts(load_field_consts(fconsts));
+  for (long long i = 0; i < n; ++i) {
+    if (t == 3)
+      poseidon_elem<3>(c, rc_mds, r_full, r_partial, in, out, (size_t)i);
+    else if (t == 5)
+      poseidon_elem<5>(c, rc_mds, r_full, r_partial, in, out, (size_t)i);
+    else if (t == 9)
+      poseidon_elem<9>(c, rc_mds, r_full, r_partial, in, out, (size_t)i);
+    else
+      return 1;
+  }
+  return 0;
 }
 
 }  // extern "C"

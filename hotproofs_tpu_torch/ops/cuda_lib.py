@@ -27,7 +27,8 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
 SOURCES = ("field.cuh", "field_lean.cuh", "curve.cuh", "msm.cuh", "msm.cu", "msm_designs.cuh",
            "msm_designs.cu", "mont.cuh", "mont.cu", "conv_mma.cuh", "conv_mma.cu",
-           "points.cuh", "points.cu", "tables.cuh", "tables.cu")
+           "points.cuh", "points.cu", "tables.cuh", "tables.cu",
+           "poseidon.cuh", "poseidon.cu")
 UNITS = tuple(s for s in SOURCES if s.endswith(".cu"))
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
@@ -110,6 +111,7 @@ def lib() -> ctypes.CDLL:
                 "hp_conv_mma": [P, P, P, LL, P],
                 "hp_scale16": [P, P, P, LL, I, P],
                 "hp_h_tables": [P, P, P, P, P, P, P, P, P, I, I, I, P],
+                "hp_poseidon_permute": [P, P, I, I, I, P, P, LL, P],
             }.items():
                 fn = getattr(handle, name)
                 fn.argtypes = args
@@ -124,14 +126,15 @@ def check(err: int, name: str) -> None:
 
 
 # ---------------------------------------------------------------------------
-# What every kernel wrapper shares (ops/msm_pallas.py, ops/pallas_field.py).
+# What every kernel wrapper shares (ops/msm_pallas.py, ops/pallas_field.py,
+# ops/tables.py, ops/poseidon.py).
 # ---------------------------------------------------------------------------
 
 # Launch counts: each wrapper adds one where it launches its kernel.
 launches: Dict[str, int] = {name: 0 for name in (
     "msm_bucket", "msm_merge", "msm_wsum", "to_affine", "msm_chain",
     "msm_bucket_tsplit", "msm_bucket_signed", "mont_mul", "mont_mul_stage",
-    "mont_mul_part", "conv_mma", "scale16", "h_tables")}
+    "mont_mul_part", "conv_mma", "scale16", "h_tables", "poseidon_permute")}
 
 
 # `d[k] += 1` is a read, an add and a store, which another thread's launch

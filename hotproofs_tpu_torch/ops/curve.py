@@ -252,6 +252,18 @@ def pt_to_affine_host(spec: CurveSpec, p) -> list:
     return out
 
 
+def pt_from_affine(spec: CurveSpec, x: int, y: int, device="cpu") -> Point:
+    """Affine ints -> one Montgomery projective point, (32,) digits each."""
+    f = spec.base
+    return tuple(torch.from_numpy(v).to(device) for v in (
+        F.int_to_limbs(f.to_mont_int(x)), F.int_to_limbs(f.to_mont_int(y)),
+        np.asarray(f.one_mont_limbs, np.int32)))
+
+
+def pt_stack(points: Sequence[Point]) -> Point:
+    return tuple(torch.stack([pt[i] for pt in points]) for i in range(3))
+
+
 def affine_to_mont(spec: CurveSpec, pts, device="cpu") -> Point:
     """Affine int pairs (None = identity) -> Montgomery projective digits."""
     f = spec.base

@@ -333,14 +333,32 @@ def from_mont(spec: FieldSpec, a):
     return pf.mont_mul_em(spec, a, pf.const_digits(spec, "unit", a.device))
 
 
+def mont_square(spec: FieldSpec, a):
+    return mont_mul(spec, a, a)
+
+
 def inv(spec: FieldSpec, a):
     """Inverse of Montgomery-form elements, Montgomery out (0 -> 0)."""
     return from_h16(h_inv(spec, to_h16(a)))
 
 
+def select(mask: torch.Tensor, a: torch.Tensor,
+           b: torch.Tensor) -> torch.Tensor:
+    """mask ? a : b, broadcasting a trailing digit axis onto the mask."""
+    return torch.where(mask[..., None].bool(), a, b)
+
+
 def zeros(shape=(), device="cpu") -> torch.Tensor:
     return torch.zeros(tuple(shape) + (N_LIMBS,), dtype=torch.int32,
                        device=device)
+
+
+def is_zero(a: torch.Tensor) -> torch.Tensor:
+    return (a == 0).all(dim=-1)
+
+
+def eq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return (a == b).all(dim=-1)
 
 
 def from_ints(spec: FieldSpec, xs: Sequence[int], device="cpu",

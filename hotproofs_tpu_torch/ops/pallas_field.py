@@ -59,7 +59,8 @@ def field_consts_words(spec: F.FieldSpec) -> np.ndarray:
                       np.uint32)
 
 
-def _consts_arg(spec: F.FieldSpec) -> ctypes.Array:
+def consts_arg(spec: F.FieldSpec) -> ctypes.Array:
+    """field_consts_words as the ctypes array a launcher takes."""
     if spec.name not in _CONSTS:
         w = field_consts_words(spec)
         _CONSTS[spec.name] = (ctypes.c_uint32 * len(w))(*w.tolist())
@@ -91,7 +92,7 @@ def _aligned(name: str, *ts: torch.Tensor) -> None:
 
 def _mont_mul_launch(spec, a, na, b, nb, out, n, layout) -> None:
     if n:
-        launch("mont_mul", lib().hp_mont_mul, _consts_arg(spec), ptr(a), na,
+        launch("mont_mul", lib().hp_mont_mul, consts_arg(spec), ptr(a), na,
                ptr(b), nb, ptr(out), n, layout, device=out.device)
 
 
@@ -279,7 +280,7 @@ def mont_mul_stage(spec: F.FieldSpec, a: torch.Tensor, b: torch.Tensor,
         return mont_mul_stage_plain(spec, a, b, stage)
     out = torch.empty_like(a)
     if n:
-        launch("mont_mul_stage", lib().hp_mont_mul_stage, _consts_arg(spec),
+        launch("mont_mul_stage", lib().hp_mont_mul_stage, consts_arg(spec),
                ptr(a), ptr(b), ptr(out), n, stage, device=a.device)
     return out
 
@@ -321,7 +322,7 @@ def mont_mul_part(spec: F.FieldSpec, a: torch.Tensor, b: torch.Tensor,
         return mont_mul_part_plain(spec, a, b, part)
     out = torch.empty_like(a)
     if n:
-        launch("mont_mul_part", lib().hp_mont_mul_part, _consts_arg(spec),
+        launch("mont_mul_part", lib().hp_mont_mul_part, consts_arg(spec),
                ptr(a), ptr(b), ptr(out), n, PARTS.index(part),
                device=a.device)
     return out

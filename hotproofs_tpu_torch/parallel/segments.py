@@ -21,7 +21,8 @@ Two paths, the same bytes:
     of the caller's list, with retries, per-segment verification and
     checkpoints.
 Counters (utils/telemetry): `segments/proved`, `segments/resumed`,
-`segments/retried`; span `segments/lockstep_wave`.
+`segments/retried`; spans `segments/lockstep_wave` (a wave) and
+`segments/prove_one` (a pool segment's prove_batch, each attempt).
 """
 
 from __future__ import annotations
@@ -249,8 +250,9 @@ def prove_segments(ivc: IVC, zs: Sequence[Sequence[int]], canon,
             # A retry moves to the next device of the list.
             dev_ivc = ivcs[(k + attempt) % len(ivcs)]
             try:
-                p = dev_ivc.prove_batch(list(zs[a]), canon[a:b],
-                                        X_host[a:b], chunk_steps=chunk)
+                with T.span("segments/prove_one", segment=str(k)):
+                    p = dev_ivc.prove_batch(list(zs[a]), canon[a:b],
+                                            X_host[a:b], chunk_steps=chunk)
                 if verify_each:
                     ivc.verify(p, io_arity=io_arity)
                 break

@@ -90,7 +90,7 @@ def prove(prover, chain: dict, segments: int, group: int, ckpt: str,
         if len(waves) == stop_after:
             raise _Stopped
 
-    before = T.metrics.snapshot()
+    before = T.metrics.snapshot()["counters"]
     t0 = time.perf_counter()
     try:
         seg = prove_segments(prover.ivc, chain["zs"], chain["canon"],
@@ -100,7 +100,7 @@ def prove(prover, chain: dict, segments: int, group: int, ckpt: str,
                              progress=progress)
     except _Stopped:
         seg = None
-    after = T.metrics.snapshot()
+    after = T.metrics.snapshot()["counters"]
     delta = {k: int(after.get(f"segments/{k}", 0)
                     - before.get(f"segments/{k}", 0))
              for k in ("proved", "resumed")}

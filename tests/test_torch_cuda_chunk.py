@@ -126,7 +126,8 @@ def test_compress_after_setup_launches_no_scale16_or_to_affine(prover):
     round and once for the commitment to L."""
     from hotproofs_tpu_torch.utils import telemetry as T_
 
-    rounds = lambda: T_.metrics.snapshot().get("spartan/ipa_rounds", 0)
+    rounds = lambda: T_.metrics.snapshot()["counters"].get(
+        "spartan/ipa_rounds", 0)
     root, proof = prover.prove(DATA, 1)
     prover.spartan.setup()
     before, r0 = dict(MP.launches), rounds()

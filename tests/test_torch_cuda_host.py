@@ -22,6 +22,7 @@ from hotproofs_tpu_torch.ops import curve as C
 from hotproofs_tpu_torch.ops import field as F
 from hotproofs_tpu_torch.ops import msm_pallas as MP
 from hotproofs_tpu_torch.ops import pallas_field as PF
+from hotproofs_tpu_torch.ops import poseidon as P
 from torch_table_edges import edge_tables
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "hotproofs_tpu_torch" \
@@ -904,3 +905,55 @@ def test_table_steps_and_alloc_vs_direct_count():
                   for v in range(16)]
             off //= 2
     assert TB.table_steps(csr) == (walk, join)
+
+
+# The eight specs of chip_smoke.py's phase 13: the kernel's three widths.
+POSEIDON_SPECS = {
+    "pallas-default": ("pallas_scalar", 3, False),
+    "vesta-default": ("vesta_scalar", 3, False),
+    "pallas-neptune": ("pallas_scalar", 3, True),
+    "vesta-neptune": ("vesta_scalar", 3, True),
+    "bn254": ("bn254_scalar", 3, False),
+    "grumpkin": ("grumpkin_scalar", 3, False),
+    "pallas-t5": ("pallas_scalar", 5, False),
+    "pallas-t9": ("pallas_scalar", 9, False)}
+
+
+@pytest.mark.parametrize("which", sorted(POSEIDON_SPECS))
+def test_poseidon_body_vs_host_permute(hc, which):
+    """k_poseidon's per-thread body (csrc/poseidon.cuh) over 7 states, the
+    first all 0 and the second all p - 1, == host_permute and the plain
+    version, with the constants buffer and field pack the wrapper passes."""
+    field, t, neptune = POSEIDON_SPECS[which]
+    spec = P.make_spec_neptune(field, t - 1) if neptune \
+        else P.make_spec(field, t)
+    fld = spec.field
+    rng = np.random.default_rng(t + len(which))
+    ints = [[int.from_bytes(rng.bytes(32), "little") % fld.p
+             for _ in range(t)] for _ in range(7)]
+    ints[0], ints[1] = [0] * t, [fld.p - 1] * t
+    x = torch.from_numpy(np.stack([fld.batch_to_limbs(
+        [fld.to_mont_int(v) for v in row]) for row in ints]))
+    xin = np.ascontiguousarray(x.numpy())
+    out = np.zeros_like(xin)
+    consts = np.ascontiguousarray(
+        P._kernel_consts(spec, "cpu").numpy().view(np.uint32))
+    fw = PF.field_consts_words(fld)
+    assert hc.hc_poseidon(_p(fw), _p(consts), t, spec.r_full,
+                          spec.r_partial, _p(xin), _p(out),
+                          ctypes.c_longlong(len(ints))) == 0
+    got = torch.from_numpy(out)
+    assert torch.equal(got, P.permute_plain(spec, x))
+    assert [F.to_ints(fld, got[i], mont=True) for i in range(len(ints))] \
+        == [P.host_permute(spec, row) for row in ints]
+
+
+def test_poseidon_body_refuses_other_widths(hc):
+    spec = P.make_spec("pallas_scalar", t=4)
+    x = np.zeros((1, 4, 32), np.int32)
+    consts = np.ascontiguousarray(
+        P._kernel_consts(spec, "cpu").numpy().view(np.uint32))
+    fw = PF.field_consts_words(spec.field)
+    assert hc.hc_poseidon(_p(fw), _p(consts), 4, spec.r_full,
+                          spec.r_partial, _p(x), _p(x.copy()),
+                          ctypes.c_longlong(1)) == 1

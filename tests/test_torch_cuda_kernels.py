@@ -16,6 +16,7 @@ from hotproofs_tpu_torch.ops import curve as C
 from hotproofs_tpu_torch.ops import field as F
 from hotproofs_tpu_torch.ops import msm_pallas as MP
 from hotproofs_tpu_torch.ops import pallas_field as PF
+from hotproofs_tpu_torch.ops import poseidon as P
 from hotproofs_tpu_torch.tools import field_mul as FM
 from hotproofs_tpu_torch.tools import wsum_affine as WA
 from torch_table_edges import edge_tables
@@ -352,3 +353,44 @@ def test_h_tables_kernel_on_edge_rows(dev, name):
     got = TB.h_tables(spec, csr, bl, lpw)
     assert MP.launches["h_tables"] == before + 1
     assert torch.equal(got, TB.h_tables_plain(spec, csr, bl, lpw))
+
+
+@pytest.mark.parametrize("spec", [
+    P.make_spec("pallas_scalar"), P.make_spec_neptune("vesta_scalar", 2),
+    P.make_spec("bn254_scalar"), P.make_spec("grumpkin_scalar"),
+    P.make_spec("pallas_scalar", t=5), P.make_spec("pallas_scalar", t=9)],
+    ids=lambda s: f"{s.field.name}-t{s.t}-{s.r_partial}")
+def test_poseidon_kernel_vs_plain_and_host(dev, spec):
+    """poseidon_permute == permute_plain on the card, one launch a call,
+    over 133 states (a part-filled block) with the edge states 0 and
+    p - 1 and a batch of two leading axes; 4 states == host_permute."""
+    fld = spec.field
+    rng = np.random.default_rng(spec.t)
+    x = FM.random_elements(rng, fld, 133 * spec.t, dev).reshape(
+        133, spec.t, 32)
+    x[0] = 0
+    x[1] = torch.from_numpy(fld.batch_to_limbs([fld.p - 1] * spec.t)).to(
+        dev)
+    before = P.launches["poseidon_permute"]
+    got = P.permute(spec, x)
+    assert P.launches["poseidon_permute"] == before + 1
+    assert torch.equal(got, P.permute_plain(spec, x))
+    y = x[:12].reshape(3, 4, spec.t, 32)
+    assert torch.equal(P.permute(spec, y), got[:12].reshape(y.shape))
+    ints = F.to_ints(fld, x[:4], mont=True)
+    want = [v for k in range(4)
+            for v in P.host_permute(spec, ints[k * spec.t:(k + 1) * spec.t])]
+    assert F.to_ints(fld, got[:4], mont=True) == want
+
+
+def test_poseidon_wrapper_rejects_bad_inputs(dev):
+    spec = P.make_spec("pallas_scalar")
+    x = torch.zeros((4, 3, 32), dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        P.permute(spec, x.to(torch.int64))
+    with pytest.raises(ValueError):
+        P.permute(spec, x[:, :2])
+    t2 = P.make_spec("pallas_scalar", t=2)
+    with pytest.raises(ValueError, match="t in"):
+        P.permute(t2, x[:, :2].contiguous())
+    assert P.permute(spec, x[:0]).shape == (0, 3, 32)

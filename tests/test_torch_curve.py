@@ -92,6 +92,26 @@ def test_select_and_identity():
 
 
 @pytest.mark.parametrize("name", ["pallas", "vesta", "bn254", "grumpkin"])
+def test_pt_from_affine_and_pt_stack_vs_reference(name):
+    """pt_from_affine (coordinates past p reduce) and pt_stack give the
+    reference's digits."""
+    spec, rspec = C.CURVES[name], RC.CURVES[name]
+    pts = _points(spec, 3, len(name))
+    pts[2] = (pts[2][0] + spec.base.p, pts[2][1] - spec.base.p)
+    ours = [C.pt_from_affine(spec, x, y) for x, y in pts]
+    refs = [RC.pt_from_affine(rspec, x, y) for x, y in pts]
+    for o, r in zip(ours, refs):
+        assert all(c.dtype == torch.int32 and c.shape == (32,) for c in o)
+        assert all(np.array_equal(c.numpy(), np.asarray(rc))
+                   for c, rc in zip(o, r))
+    got, want = C.pt_stack(ours), RC.pt_stack(refs)
+    assert all(np.array_equal(g.numpy(), np.asarray(w))
+               for g, w in zip(got, want))
+    assert C.pt_to_affine_host(spec, got) == \
+        [(x % spec.base.p, y % spec.base.p) for x, y in pts]
+
+
+@pytest.mark.parametrize("name", ["pallas", "vesta", "bn254", "grumpkin"])
 def test_pooled_generator_derivation_matches_reference_and_serial(name):
     """The derivation split over worker processes concatenates to the
     serial derivation and to the reference's, index for index."""

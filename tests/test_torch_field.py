@@ -73,6 +73,36 @@ def test_inv_vs_reference_and_ints(name):
     assert F.to_ints(spec, got) == want
 
 
+@pytest.mark.parametrize("name", ["pallas_scalar", "bn254_base"])
+def test_square_select_and_predicates_vs_reference(name):
+    """mont_square, select, is_zero and eq against the reference's on the
+    same digits (zero elements, equal pairs, a batch of two axes)."""
+    import jax
+
+    spec, rspec = F.FIELDS[name], RF.FIELDS[name]
+    xs, ys = _inputs(spec, seed=11, n=24)
+    ys[4:8] = xs[4:8]                           # equal pairs
+    xs[8] = ys[9] = 0                           # zeros
+    a_np = spec.batch_to_limbs(xs).reshape(4, 6, 32)
+    b_np = spec.batch_to_limbs(ys).reshape(4, 6, 32)
+    a, b = torch.from_numpy(a_np), torch.from_numpy(b_np)
+    sq = jax.jit(lambda x: RF.mont_square(rspec, x))(a_np)
+    assert np.array_equal(F.mont_square(spec, a).numpy(), np.asarray(sq))
+    mask_np = np.random.default_rng(3).integers(0, 2, (4, 6)).astype(bool)
+    for mask in (mask_np, mask_np.astype(np.int32)):
+        got = F.select(torch.from_numpy(mask), a, b)
+        assert np.array_equal(got.numpy(),
+                              np.asarray(RF.select(mask, a_np, b_np)))
+    for fn, args in ((F.is_zero, (a,)), (F.is_zero, (b,)),
+                     (F.eq, (a, b)), (F.eq, (a, a))):
+        got = fn(*args)
+        want = getattr(RF, fn.__name__)(*(x.numpy() for x in args))
+        assert got.dtype == torch.bool and got.shape == (4, 6)
+        assert np.array_equal(got.numpy(), np.asarray(want))
+    assert int(F.is_zero(a).sum()) == xs.count(0)
+    assert int(F.eq(a, b).sum()) == sum(x == y for x, y in zip(xs, ys))
+
+
 def test_lazy_row_sum_reduction():
     """h_reduce_lazy: an integer sum of many canonical values -> mod p."""
     spec = F.pallas_scalar

@@ -57,7 +57,8 @@ def test_pp_digest_matches_reference(toy):
 def test_prove_batch_byte_equal_to_reference(toy):
     ivc, _, layout = toy
     canon, X, z = _chain(layout, 3, 5)
-    folds = lambda: telemetry.metrics.snapshot().get("ivc/folds", 0)
+    folds = lambda: telemetry.metrics.snapshot()["counters"].get(
+        "ivc/folds", 0)
     before = folds()
     proof = ivc.prove_batch([3], canon, X)
     assert folds() == before + 5

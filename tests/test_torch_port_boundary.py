@@ -23,6 +23,7 @@ from hotproofs_tpu.circuits import poseidon_gadget as R_PG
 from hotproofs_tpu.circuits import dsl as R_dsl
 from hotproofs_tpu.ops import poseidon as R_P
 from hotproofs_tpu.core import blake3_ref as R_b3
+from hotproofs_tpu.core import circom_artifacts as R_CA
 from hotproofs_tpu.core import native as R_native
 from hotproofs_tpu.core import native_ff as R_native_ff
 from hotproofs_tpu_torch.circuits import bignat_gadget as BN
@@ -33,6 +34,7 @@ from hotproofs_tpu_torch.circuits import gadgets as g
 from hotproofs_tpu_torch.circuits import nova_augmented as NA
 from hotproofs_tpu_torch.circuits import poseidon_gadget as PG
 from hotproofs_tpu_torch.core import blake3_ref as b3
+from hotproofs_tpu_torch.core import circom_artifacts as CA
 from hotproofs_tpu_torch.core import native, native_ff
 from hotproofs_tpu_torch.models import chunk_prover as CP
 from hotproofs_tpu_torch.nova.transcript import Transcript
@@ -40,6 +42,7 @@ from hotproofs_tpu_torch.ops import curve as C
 from hotproofs_tpu_torch.ops import poseidon as P
 from hotproofs_tpu_torch.tools import field_mul as FM
 from hotproofs_tpu_torch.tools import msm_designs as D
+from hotproofs_tpu_torch.tools import trace_check as TC
 from hotproofs_tpu_torch.tools import wsum_affine as WA
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -50,6 +53,10 @@ RECURSIVE_FILES = [REPO / "hotproofs_tpu_torch" / f for f in (
     "circuits/bignat_gadget.py", "circuits/ec_gadget.py",
     "circuits/poseidon_gadget.py", "circuits/nova_augmented.py",
     "nova/recursive.py")]
+# The last modules ported: the circom parsers (a copy), the batched
+# Poseidon permutation and the telemetry with its capture.
+LAST_FILES = [REPO / "hotproofs_tpu_torch" / f for f in (
+    "core/circom_artifacts.py", "ops/poseidon.py", "utils/telemetry.py")]
 
 
 def _foreign(name: str) -> bool:
@@ -76,6 +83,20 @@ def test_the_recursive_modules_are_checked():
     assert all(f in PORT_FILES for f in RECURSIVE_FILES)
 
 
+def test_the_last_modules_are_checked():
+    assert all(f in PORT_FILES for f in LAST_FILES)
+
+
+def test_circom_artifacts_is_the_reference_copied_unchanged():
+    """The parsers are jax-free, so the port keeps them as they are: the
+    same source, and the same objects from the same bytes."""
+    ours = REPO / "hotproofs_tpu_torch" / "core" / "circom_artifacts.py"
+    ref = REPO / "hotproofs_tpu" / "core" / "circom_artifacts.py"
+    assert ours.read_bytes() == ref.read_bytes()
+    assert CA.__file__ != R_CA.__file__
+    assert CA.parse_sym is not R_CA.parse_sym
+
+
 _IMPORTS = r"""
 import sys
 import hotproofs_tpu_torch.models.chunk_prover
@@ -83,6 +104,9 @@ import hotproofs_tpu_torch.nova.recursive
 import hotproofs_tpu_torch.tools.msm_designs
 import hotproofs_tpu_torch.tools.field_mul
 import hotproofs_tpu_torch.tools.wsum_affine
+import hotproofs_tpu_torch.core.circom_artifacts
+import hotproofs_tpu_torch.ops.poseidon
+import hotproofs_tpu_torch.utils.telemetry
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib")
              or (m.startswith("hotproofs_tpu")
@@ -277,7 +301,7 @@ def test_entry_points_default_to_the_card(capsys):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the no-card error cannot show")
     for make in (CP.ChunkProver, lambda: D.main([]), lambda: FM.main([]),
-                 lambda: WA.main([]),
+                 lambda: WA.main([]), TC.main,
                  lambda: CP.main(["verify", "--proof", "x"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()

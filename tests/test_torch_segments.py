@@ -58,7 +58,7 @@ def _bytes(p) -> str:
 
 
 def _counts():
-    c = telemetry.metrics.snapshot()
+    c = telemetry.metrics.snapshot()["counters"]
     return {k: c.get(f"segments/{k}", 0)
             for k in ("proved", "resumed", "retried")}
 

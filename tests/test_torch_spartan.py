@@ -208,7 +208,7 @@ def test_compressed_chunk_proof_file_round_trip(compressed, tmp_path):
 
 
 def _counts():
-    snap = telemetry.metrics.snapshot()
+    snap = telemetry.metrics.snapshot()["counters"]
     return {k: snap.get(f"spartan/h_{k}", 0)
             for k in ("builds", "loads", "refused")}
 
